@@ -3,14 +3,15 @@
 
 BASELINE config 4 as one command — recover material albedo, roughness, and
 light emission of the analytical demo scene from a target image, descending
-through the differentiable renderer (fused Pallas megakernel + custom-VJP
-backward kernel on TPU; optionally sharded over a device mesh). The
+through the differentiable renderer (kernel=auto: the XLA integrator, which
+measured faster for differentiated renders than the fused GPU kernel;
+kernel=pallas: the kernel, optionally sharded over a device mesh). The
 capability the reference cannot have: its materials are code
 (/root/reference/renderer/src/analytical.rs:56-85), not data.
 
 Examples:
-    python app/invert.py                          # one chip, megakernel
-    python app/invert.py --mesh 4x2               # sharded over 8 devices
+    python app/invert.py                          # one GPU, kernel=auto
+    python app/invert.py --kernel pallas --mesh 4x1  # kernel on 4 devices
     python app/invert.py --kernel xla --steps 40  # XLA remat path
     python app/invert.py --ckpt-dir /tmp/inv      # checkpoint + resume
 """
@@ -31,7 +32,7 @@ def main(argv=None) -> int:
     ap.add_argument("--spp", type=int, default=1)
     ap.add_argument("--lr", type=float, default=3e-2)
     ap.add_argument("--depth", type=int, default=4)
-    ap.add_argument("--kernel", choices=("pallas", "xla"), default="pallas")
+    ap.add_argument("--kernel", choices=("auto", "pallas", "xla"), default="auto")
     ap.add_argument(
         "--scene", choices=("analytical", "sdf"), default="analytical",
         help="analytical: recover albedo/roughness/emission; sdf: recover "
@@ -39,9 +40,10 @@ def main(argv=None) -> int:
     )
     ap.add_argument(
         "--mesh", default=None,
-        help="TILESxSPP device mesh for the sharded megakernel, e.g. 4x2",
+        help="TILESxSPP device mesh for the sharded kernel (--kernel "
+        "pallas), e.g. 4x1",
     )
-    ap.add_argument("--tile-rows", type=int, default=16)
+    ap.add_argument("--tile-rows", type=int, default=None)
     ap.add_argument("--ckpt-dir", default=None)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument(
@@ -59,7 +61,10 @@ def main(argv=None) -> int:
     if args.cpu:
         jax.config.update("jax_platforms", "cpu")
 
+    from pathtracer_tpu import device
     from pathtracer_tpu.integrator.inverse import recover_demo
+
+    device.setup_compile_cache()
 
     mesh = None
     if args.mesh:
@@ -81,6 +86,7 @@ def main(argv=None) -> int:
         tile_rows=args.tile_rows,
         ckpt_dir=args.ckpt_dir,
         recursion_depth=args.depth,
+        interpret=args.cpu,
         verbose=True,
     )
 

@@ -11,8 +11,8 @@ per-frame metrics.
 Usage:
   python app/render.py --width 800 --height 600 --frames 32 -o out.png
   python app/render.py --scene sdf --depth 8 --frames 64 --ckpt-dir runs/a
-  python app/render.py --kernel pallas --tile-rows 32      # fused megakernel
-  python app/render.py --mesh 4x2 --spp 2                  # sharded (8 devices)
+  python app/render.py --kernel pallas                     # fused GPU kernel
+  python app/render.py --mesh 4x1 --spp 2                  # sharded (4 devices)
 """
 
 from __future__ import annotations
@@ -24,14 +24,10 @@ import sys
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 
 import jax
-
-# Persistent XLA compile cache: Mosaic/XLA compiles of the 1080p kernels
-# take minutes cold; cache them across processes (driver runs included).
-jax.config.update("jax_compilation_cache_dir", os.path.join(os.path.dirname(os.path.abspath(__file__)), "../.jax_cache"))
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 2.0)
 import jax.numpy as jnp
 
 import pathtracer_tpu as pt
+from pathtracer_tpu import device
 from pathtracer_tpu.utils.buffer import new_buffer, ColorBuffer
 from pathtracer_tpu.utils.checkpoint import (
     latest_checkpoint,
@@ -58,6 +54,10 @@ def build_scene(cfg: RenderConfig) -> pt.Scene:
         return make_big(dtype=cfg.dtype, recursion_depth=cfg.depth)
     if cfg.scene == "analytical":
         return pt.make_analytical_scene(dtype=cfg.dtype, recursion_depth=cfg.depth)
+    if cfg.scene == "media":
+        from pathtracer_tpu.models.analytical import make_media_scene
+
+        return make_media_scene(dtype=cfg.dtype, recursion_depth=cfg.depth)
     if cfg.scene == "sdf":
         from pathtracer_tpu.models.sdf import make_scene as make_sdf_scene
 
@@ -67,20 +67,23 @@ def build_scene(cfg: RenderConfig) -> pt.Scene:
 
         return make_mesh_scene(dtype=cfg.dtype, recursion_depth=cfg.depth)
     raise SystemExit(
-        f"unknown scene {cfg.scene!r} (choose analytical|sdf|mesh|bigmesh|file:PATH)"
+        f"unknown scene {cfg.scene!r} "
+        "(choose analytical|media|sdf|mesh|bigmesh|file:PATH)"
     )
 
 
-def make_renderer(cfg: RenderConfig, scene: pt.Scene, quirks):
+def make_renderer(cfg: RenderConfig, scene: pt.Scene, quirks,
+                  use_kernel: bool, interpret: bool = False):
     """Resolve the configured execution path to a (scene, key) -> frame fn:
-    XLA integrator, fused Pallas megakernel, or either sharded over a
-    ("tiles", "spp") device mesh — every RenderConfig execution field is
-    live here (round-1 VERDICT weak #9: no dead config, the CLI reaches
-    the fast paths)."""
+    XLA integrator, fused GPU kernel (`use_kernel`, routed by
+    device.use_kernel), or either sharded over a ("tiles", "spp") device
+    mesh — every RenderConfig execution field is live here, so the CLI
+    reaches every path. `interpret` (--cpu) lets the kernel run in the
+    Pallas interpreter on a CPU device; without it the kernel refuses a
+    CPU device (device.pallas_interpret), checked here before any frame."""
     sharded = cfg.mesh_tiles * cfg.mesh_spp > 1
-    # Pallas kernels compile via Mosaic only on real TPUs; on the CPU
-    # backend (e.g. --cpu) they must run in interpret mode.
-    interpret = jax.devices()[0].platform == "cpu"
+    if use_kernel:
+        device.pallas_interpret(interpret)
     if sharded:
         from pathtracer_tpu.parallel.mesh import (
             make_mesh,
@@ -89,7 +92,7 @@ def make_renderer(cfg: RenderConfig, scene: pt.Scene, quirks):
         )
 
         mesh = make_mesh(cfg.mesh_tiles, cfg.mesh_spp)
-        if cfg.kernel == "pallas":
+        if use_kernel:
             return lambda s, k: render_frame_sharded_pallas(
                 s, k, mesh, cfg.width, cfg.height, spp=cfg.spp, quirks=quirks,
                 tile_rows=cfg.tile_rows, uniforms=cfg.rng,
@@ -99,7 +102,7 @@ def make_renderer(cfg: RenderConfig, scene: pt.Scene, quirks):
             s, k, mesh, cfg.width, cfg.height, spp=cfg.spp, quirks=quirks,
             unroll=cfg.unroll,
         )
-    if cfg.kernel == "pallas":
+    if use_kernel:
         from pathtracer_tpu.ops.megakernel import render_frame_pallas
 
         return lambda s, k: render_frame_pallas(
@@ -130,22 +133,25 @@ def main(argv=None) -> int:
     ap.add_argument("--metrics", default=None, help="write per-frame metrics jsonl")
     ap.add_argument("--profile", default=None, help="jax.profiler trace directory")
     ap.add_argument(
-        "--kernel", choices=["xla", "pallas"], default="xla",
-        help="integrator: lax.scan XLA path or the fused Pallas megakernel",
+        "--kernel", choices=["xla", "pallas", "auto"], default="auto",
+        help="integrator: lax.scan XLA path, the fused GPU kernel, or auto "
+        "(the kernel on the GPU for scene families where it measured "
+        "faster, XLA otherwise)",
     )
     ap.add_argument(
-        "--tiling", choices=["auto", "flat", "block", "square"],
-        default="auto",
-        help="megakernel tile layout: auto picks compact 2-D pixel blocks "
-        "at spp=1 (fastest measured), flat ray ranges otherwise",
+        "--tiling", choices=["auto", "flat", "block"], default="auto",
+        help="kernel tile layout: auto picks compact 2-D pixel blocks "
+        "when spp divides the lane width, flat ray ranges otherwise",
     )
     ap.add_argument(
-        "--tile-rows", type=int, default=16,
-        help="megakernel tile height (rays per tile = 128 * rows)",
+        "--tile-rows", type=int, default=4,
+        help="kernel tile height, a power of two <= 16 (rays per tile = "
+        "32 * rows, one per thread)",
     )
     ap.add_argument(
         "--rng", choices=["inkernel", "hbm"], default="inkernel",
-        help="megakernel uniforms: TPU core PRNG or threefry rows from HBM",
+        help="kernel uniforms: counter-based hash evaluated in the kernel, "
+        "or threefry rows read from device memory",
     )
     ap.add_argument(
         "--mesh", default=None, metavar="TILESxSPP",
@@ -172,11 +178,16 @@ def main(argv=None) -> int:
         help="print per-bounce alive-lane occupancy before rendering "
         "(masking economics, SURVEY.md §7)",
     )
-    ap.add_argument("--cpu", action="store_true", help="force CPU backend")
+    ap.add_argument(
+        "--cpu", action="store_true",
+        help="force the CPU backend (--kernel pallas then runs the Pallas "
+        "interpreter)",
+    )
     args = ap.parse_args(argv)
 
     if args.cpu:
         jax.config.update("jax_platforms", "cpu")
+    device.setup_compile_cache()
 
     mesh_tiles, mesh_spp = 1, 1
     if args.mesh:
@@ -203,7 +214,11 @@ def main(argv=None) -> int:
     )
     scene = build_scene(cfg)
     quirks = cfg.quirk_flags
-    render_one = make_renderer(cfg, scene, quirks)
+    from pathtracer_tpu.ops.megakernel import kernel_family
+
+    use_kernel = device.use_kernel(kernel_family(scene), cfg.kernel)
+    render_one = make_renderer(cfg, scene, quirks, use_kernel,
+                               interpret=args.cpu)
 
     buf = new_buffer(cfg.width, cfg.height, cfg.dtype)
     key = jax.random.PRNGKey(cfg.seed)
@@ -218,19 +233,14 @@ def main(argv=None) -> int:
             print(f"resumed from {path} at frame {start_frame}")
 
     if args.occupancy:
-        if cfg.kernel == "pallas":
-            # In-kernel counters from the fused megakernel — the path where
-            # the masking economics actually bind (round-3 VERDICT weak #5).
+        if use_kernel:
+            # In-kernel counters from the fused kernel — the path where
+            # the masking economics actually bind.
             from pathtracer_tpu.ops.megakernel import measure_occupancy_pallas
 
-            interpret = jax.devices()[0].platform == "cpu"
-            # The TPU core PRNG has no interpret lowering: force hbm
-            # uniforms on CPU hosts (mirrors recover_demo's selection).
-            uniforms = "hbm" if interpret else cfg.rng
             stats = measure_occupancy_pallas(
                 scene, key, cfg.width, cfg.height, spp=cfg.spp, quirks=quirks,
-                tile_rows=cfg.tile_rows, uniforms=uniforms,
-                interpret=interpret,
+                tile_rows=cfg.tile_rows, uniforms=cfg.rng, interpret=args.cpu,
             )
             occ = [float(x) for x in stats["alive_fraction"]]
             print(

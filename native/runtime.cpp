@@ -1,6 +1,6 @@
 // pathtracer_tpu native runtime: the host-side presentation layer.
 //
-// TPU-native equivalent of the reference's Rust presentation path
+// Host-side equivalent of the reference's Rust presentation path
 // (rust-pathtracer/src/buffer.rs:37-102 + renderer/src/main.rs:113-131):
 // where the reference tonemaps + blits the accumulation buffer with rayon
 // threads before handing it to the `pixels` GPU surface, this library does

@@ -1,10 +1,10 @@
-"""pathtracer_tpu: a TPU-native differentiable path tracer (JAX/XLA/Pallas).
+"""pathtracer_tpu: a differentiable path tracer for NVIDIA GPUs (JAX/XLA/Pallas).
 
 Brand-new framework with the capabilities of markusmoenig/rust-pathtracer
 (reference mounted at /root/reference): progressive Monte-Carlo integration
 with NEE + MIS and a four-lobe Disney/principled BSDF over pluggable scene
-backends — rebuilt TPU-first: SoA vector math on the VPU, masked wavefront
-bounce loops under lax.scan, counter-based reproducible RNG, pixel/spp
+backends — rebuilt for accelerators: SoA vector math, masked wavefront
+bounce loops under lax.scan, a fused Pallas-Triton path kernel, counter-based reproducible RNG, pixel/spp
 sharding over device meshes, and end-to-end differentiability to material,
 light, camera, and SDF parameters.
 

@@ -135,7 +135,8 @@ def inverse_render(
     unbiased: bool = True,
     verbose: bool = False,
     kernel: str = "xla",
-    tile_rows: int = 16,
+    tile_rows: int | None = None,
+    interpret: bool = False,
 ) -> OptResult:
     """Adam-optimize the selected scene leaves against a target image.
 
@@ -151,16 +152,13 @@ def inverse_render(
     param_transform, if given, maps the rebuilt scene before rendering
     (e.g. clamping to valid ranges).
 
-    kernel="pallas" runs both renders AND the gradient through the fused
-    megakernel with its custom-VJP backward kernel (~15x the XLA path's
-    fwd+bwd throughput on TPU; see BASELINE.md). Limit: packed scenes
-    only (analytical / SDF / registered backends; media and procedural
-    hooks are supported in-kernel, and the backward kernel compiles at
-    least to depth 16 on a v5e under its raised VMEM cap). tile_rows
-    applies to the megakernel. Media presence is detected from the
-    concrete input scene here (inside the jitted step the leaves are
-    tracers and render_frame_pallas's own auto-detection cannot see
-    them).
+    kernel="pallas" runs both renders through the fused GPU kernel; its
+    custom VJP is the XLA integrator's VJP on the kernel's own samples.
+    Limit: scenes a kernel backend claims. tile_rows and interpret (the
+    Pallas interpreter, CPU only) apply to the kernel. Media presence is
+    detected from the concrete input scene here (inside the jitted step
+    the leaves are tracers and render_frame_pallas's own auto-detection
+    cannot see them).
     """
     import optax
 
@@ -184,6 +182,7 @@ def inverse_render(
                     return render_frame_pallas(
                         s, kk, width, height, spp=spp, quirks=quirks,
                         tile_rows=tile_rows, media=_detect_media(scene),
+                        interpret=interpret,
                     )
                 return render_frame(
                     s, kk, width, height, spp=spp, quirks=quirks,
@@ -242,13 +241,13 @@ def recover_demo(
     lr: float = 3e-2,
     select: Iterable[str] | None = None,
     scene: str = "analytical",
-    kernel: str = "pallas",
+    kernel: str = "auto",
     mesh=None,
-    tile_rows: int = 16,
+    tile_rows: int | None = None,
     ckpt_dir: str | None = None,
     ckpt_every: int = 20,
     recursion_depth: int = 4,
-    interpret: bool | None = None,
+    interpret: bool = False,
     verbose: bool = True,
 ) -> RecoverReport:
     """BASELINE config 4, end to end: recover material albedo, roughness,
@@ -262,20 +261,23 @@ def recover_demo(
     emission; scene="sdf" recovers GEOMETRY — sphere radius and torus
     major radius of the sphere-traced SDF scene — through the
     implicit-function hit-distance gradients (models/sdf.sphere_trace's
-    Newton reattachment; in-kernel twin in ops/megakernel_sdf), plus the
-    light. `select=None` picks the per-family default.
+    Newton reattachment), plus the light. `select=None` picks the
+    per-family default.
 
     Pipeline: render the target with the TRUE parameters, perturb the
     selected leaves, then Adam-descend the common-random-number paired
     loss (`paired_image_loss` — unbiased in the expected image) through
     the chosen render path:
 
-    - kernel="pallas", mesh=None: fused megakernel + custom-VJP backward
-      kernel on one chip;
-    - kernel="pallas", mesh=a jax.sharding.Mesh: the SHARDED megakernel
+    - kernel="pallas", mesh=None: the fused GPU kernel, whose custom VJP
+      is the XLA integrator's VJP on the kernel's own samples;
+    - kernel="pallas", mesh=a jax.sharding.Mesh: the SHARDED kernel
       (parallel/mesh.render_frame_sharded_pallas) — per-device backward
-      kernels, psum'd cotangents;
-    - kernel="xla": the lax.scan integrator with per-bounce remat.
+      rules, psum'd cotangents;
+    - kernel="xla": the lax.scan integrator with per-bounce remat;
+    - kernel="auto": XLA, which measured faster than the kernel for
+      differentiated renders (the kernel has no backward kernel yet).
+    interpret=True runs the kernel in the Pallas interpreter on the CPU.
 
     Optimizer state is checkpointed every `ckpt_every` steps to `ckpt_dir`
     (atomic npz, utils/checkpoint) and the demo resumes from the latest
@@ -288,9 +290,8 @@ def recover_demo(
     (analytical.rs:107-115), so it is UNIDENTIFIABLE from renders and
     parks at the clamp boundary; likewise the matte plane's roughness is
     only weakly identifiable. The physically visible parameters (sphere
-    albedos, sphere roughness, light emission) recover to a few percent —
-    measured on TPU at 256x192x80 steps: emission rel err <= 5%, sphere
-    rgb <= 5%, median over all params 5%.
+    albedos, sphere roughness, light emission) are the ones expected to
+    recover to a few percent.
     """
     import optax
 
@@ -303,11 +304,6 @@ def recover_demo(
 
     if key is None:
         key = jax.random.PRNGKey(0)
-    if interpret is None:
-        interpret = jax.devices()[0].platform == "cpu"
-    # The TPU core PRNG (pltpu.prng_seed) has no CPU interpret lowering;
-    # the hbm threefry rows are the validated CPU twin of the same stream.
-    uniforms = "hbm" if interpret else "inkernel"
 
     if scene == "sdf":
         from ..models.sdf import make_scene as make_sdf_scene
@@ -329,19 +325,28 @@ def recover_demo(
             )
 
     def make_render(kind):
+        if kind not in ("auto", "pallas", "xla"):
+            raise ValueError(
+                f"kernel must be 'auto'|'pallas'|'xla', got {kind!r}"
+            )
+        # "auto" is XLA here: the kernel's backward rule is the XLA VJP,
+        # so kernel forward + XLA backward measured slower than XLA alone
+        # (fwd+bwd cell, PERF.md Findings).
+        if mesh is not None and kind != "pallas":
+            raise ValueError("mesh= shards the kernel: pass kernel='pallas'")
         if kind == "pallas" and mesh is not None:
             from ..parallel.mesh import render_frame_sharded_pallas
 
             return lambda s, k: render_frame_sharded_pallas(
                 s, k, mesh, width, height, spp=spp, tile_rows=tile_rows,
-                uniforms=uniforms, interpret=interpret, media=False,
+                interpret=interpret, media=False,
             )
         if kind == "pallas":
             from ..ops.megakernel import render_frame_pallas
 
             return lambda s, k: render_frame_pallas(
                 s, k, width, height, spp=spp, tile_rows=tile_rows,
-                uniforms=uniforms, interpret=interpret, media=False,
+                interpret=interpret, media=False,
             )
         return lambda s, k: render_frame(
             s, k, width, height, spp=spp, detach=True, remat=True

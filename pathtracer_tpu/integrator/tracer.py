@@ -1,12 +1,12 @@
 """The path-tracing integrator: progressive Monte-Carlo with NEE + MIS.
 
-TPU-native rebuild of Tracer (rust-pathtracer/src/tracer.rs:22-220). The
+Batched rebuild of Tracer (rust-pathtracer/src/tracer.rs:22-220). The
 reference runs one pixel per rayon task with data-dependent `break`s; here
 the whole frame is a flat ray batch walked by a fixed-trip lax.scan over
 bounces with an `alive` mask — every lane executes every bounce, masked
 lanes contribute exact zeros. RNG is counter-based (threefry), keyed by
-(frame, bounce, lane): reproducible, and bit-identical between the TPU path
-and the float64 CPU oracle (the reference's per-thread ThreadRng,
+(frame, bounce, lane): reproducible, and bit-identical between the batched
+path and the float64 CPU oracle (the reference's per-thread ThreadRng,
 tracer.rs:44, is not reproducible at all).
 
 Quirk ledger replicated verbatim (flag-gated via `Quirks`):
@@ -262,7 +262,7 @@ def sample_light(
 ) -> LightSample:
     """Type-dispatched light sampling (tracer.rs:173-220 `sample_light`):
     all three candidates are cheap closed forms, selected per lane by the
-    picked light's type — the TPU-native replacement for the reference's
+    picked light's type — the batched replacement for the reference's
     match on LightType."""
     t = gather_light(lights, idx).light_type
     sph = sample_light_spherical(lights, idx, scatter_pos, r1, r2, detach)

@@ -1,6 +1,6 @@
 """The analytical demo scene: two spheres + checker plane + sky gradient.
 
-TPU-native rebuild of renderer/src/analytical.rs:4-213 — but where the
+Batched rebuild of renderer/src/analytical.rs:4-213 — but where the
 reference hardcodes geometry and material values in code, here everything is
 a differentiable parameter pytree: sphere centers/radii, the material table,
 checker albedos, plane placement, sky colors, and the light. Inverse
@@ -193,4 +193,36 @@ def make_scene(
         closest_hit_fn=closest_hit,
         any_hit_fn=any_hit_respecting_max_dist if respect_max_dist else any_hit,
         recursion_depth=recursion_depth,
+    )
+
+
+def make_media_scene(dtype=jnp.float32, recursion_depth: int = 6) -> Scene:
+    """The demo scene with sphere 1 turned into glass holding an HG-phase
+    scattering medium (the reference declares Medium but never uses it,
+    material.rs:16-34; here free flight, phase-function NEE and HG
+    continuation all run). Depth 6: media paths need the extra bounces
+    through the interface. The benchmark's media cell."""
+    from .material import MediumType
+
+    scene = make_scene(dtype=dtype, recursion_depth=recursion_depth)
+    mats = scene.params.materials
+    mats = mats._replace(
+        spec_trans=mats.spec_trans.at[1].set(1.0),
+        metallic=mats.metallic.at[1].set(0.0),
+        roughness=mats.roughness.at[1].set(0.05),
+        ior=mats.ior.at[1].set(1.5),
+    )
+    med = mats.medium
+    med = med._replace(
+        medium_type=med.medium_type.at[1].set(int(MediumType.SCATTER)),
+        density=med.density.at[1].set(0.6),
+        color=med.color._replace(
+            x=med.color.x.at[1].set(0.9),
+            y=med.color.y.at[1].set(0.6),
+            z=med.color.z.at[1].set(0.3),
+        ),
+        anisotropy=med.anisotropy.at[1].set(0.4),
+    )
+    return scene.replace(
+        params=scene.params._replace(materials=mats._replace(medium=med))
     )

@@ -4,10 +4,9 @@ The small-mesh backend (models/mesh.py) unrolls Möller-Trumbore per
 triangle at trace time — ideal for tens of triangles, hopeless for
 thousands (compile time and code size scale with T). This backend is the
 scaling seam the reference's `trait Scene` was designed to carry
-(/root/reference/rust-pathtracer/src/scene.rs:5-27: `closest_hit` /
-`any_hit` over arbitrary content): it handles 1k+ triangles by
-reformulating ray-triangle intersection as a MATMUL so the TPU's MXU does
-the heavy lifting instead of the vector units.
+(rust-pathtracer/src/scene.rs:5-27: `closest_hit` / `any_hit` over
+arbitrary content): it handles 1k+ triangles from a precomputed
+per-triangle coefficient table.
 
 Plücker-style reformulation: with per-ray features (d, m, o) where
 m = o x d is the ray's moment vector, every Möller-Trumbore quantity is a
@@ -23,23 +22,21 @@ e2.(tvec x e1) with tvec = o - v0; derivation checked numerically against
 ops.intersect.ray_triangle in tests/test_bigmesh.py). So intersecting R
 rays against T triangles is 19 fused multiply-adds per (ray, triangle)
 pair over a precomputed [T, 16] coefficient table — dense, static-shaped,
-gather-free outer-product work the VPU streams at full rate (an MXU
-matmul formulation was built and measured first: the contraction depth of
-16 wastes 7/8 of the systolic array, and f32-faithful precision costs 6
-passes, so the FMA form is ~2-4x faster in practice).
+gather-free elementwise work.
 
 Triangles are Morton-ordered by centroid at build time (a static
 permutation, so vertex gradients are unaffected) and grouped into chunks
-of 128; per-chunk AABBs (computed from live vertices, gradient-detached)
-let the Pallas kernel (ops/megakernel_bigmesh.py) skip whole chunks no
-ray in the tile can hit — a flat one-level BVH, traversed densely.
+of CHUNK; per-chunk AABBs (computed from live vertices, gradient-detached)
+let the fused kernel (ops/megakernel_bigmesh.py) skip whole chunks no ray
+of a tile can hit — a flat one-level BVH.
 
 The XLA path below is the correctness twin: same tables, same formulas in
 the same operation order (mt_terms / mt_hit_t are shared with the
 kernel), fully differentiable w.r.t. vertices (the tables are pure jnp of
-the vertex pytree). It materializes [N_rays, Tpad] pair matrices, so use
-it at test/validation sizes; production renders go through the Pallas
-backend, which streams chunks through VMEM.
+the vertex pytree). It expresses [N_rays, Tpad] pair matrices; XLA fuses
+them into the min/argmin reductions rather than materializing them (it runs
+at 1920x1080 on one GPU), but it tests every pair with no culling, so the
+kernel backend is the fast path.
 """
 
 from __future__ import annotations
@@ -64,7 +61,9 @@ from .material import (
 from .scene import Scene, SurfaceHit
 
 EPS = 1e-7  # same guards as ops.intersect.ray_triangle
-CHUNK = 128  # triangles per culling chunk (lane-width aligned)
+# Triangles per culling chunk: of 32 / 64 / 128 on the card, 32 was the
+# fastest at every kernel tile height (PERF.md, Findings).
+CHUNK = 32
 FEAT = 16  # ray-feature basis [d(3), m(3), o(3), 1, pad(6)]
 
 
@@ -122,8 +121,9 @@ def mt_terms(cols, d, m, o):
 
     Shared VERBATIM (same operation order, so results agree to the last
     ulp) between the XLA twin and the Pallas kernel — only the broadcast
-    orientation differs (XLA: cols [1, T] x rays [N, 1]; kernel: cols
-    [CHUNK, 1] x rays [1, R]). Column layout (see coef_tables):
+    orientation differs (XLA: cols [1, T] x rays [N, 1]; kernel: one
+    triangle's scalar cols x a tile of rays). Column layout (see
+    coef_tables):
     0-2 n | 3-5 v0 x e2 | 6-8 e2 | 9-11 e1 x v0 | 12-14 -e1 | 15 -v0.n"""
     det = -((cols[0] * d[0] + cols[1] * d[1]) + cols[2] * d[2])
     u_num = ((cols[3] * d[0] + cols[4] * d[1]) + cols[5] * d[2]) + (
@@ -164,8 +164,8 @@ def coef_tables(p: BigMeshParams):
       coef  [Tpad, 16] f32 — per-triangle mt_terms coefficients; padding
             rows are all-zero (det = 0 => never a hit).
       attrT [8, Tpad] f32 — rows [n.x, n.y, n.z, mat_id, 0...] for the
-            kernel's one-hot winner gather (n is the UNnormalized
-            geometric normal e1 x e2).
+            kernel's indexed winner load (n is the UNnormalized geometric
+            normal e1 x e2).
       aabb  [nchunk, 8] f32 — per-chunk [min.xyz, max.xyz, 0, 0] bounds,
             gradient-detached (culling decisions are discrete).
     """
@@ -224,8 +224,7 @@ def _ray_rows(ro: V3, rd: V3):
 
 def closest_hit(p: BigMeshParams, ro: V3, rd: V3) -> SurfaceHit:
     """Batched closest hit over the whole table (XLA correctness twin of
-    the Pallas backend; materializes [N, Tpad] pair matrices — test-size
-    friendly)."""
+    the kernel backend; every (ray, triangle) pair, no culling)."""
     dtype = jnp.asarray(rd.x).dtype
     n_shape = jnp.shape(rd.x)
     coef, attrT, _ = coef_tables(p)
@@ -361,9 +360,8 @@ def default_params(dtype=jnp.float32, ground_grid: int = 0) -> BigMeshParams:
     triangles total) under the analytical demo's sky.
 
     ground_grid > 0 tessellates the ground into grid x grid x 2 triangles
-    instead of one quad — measured SLOWER at 1080p (46 vs 54 Mrays/s: the
-    extra chunk outweighs what the tighter chunk AABBs cull), kept as an
-    option for cull studies on bigger scenes."""
+    instead of one quad — an option for cull studies on bigger scenes
+    (tighter chunk AABBs against an extra chunk of triangles)."""
     verts, tris, mats = [], [], []
 
     def add(vs, ts, mat_id):

@@ -1,6 +1,6 @@
 """Disney/principled material model as a differentiable pytree.
 
-TPU-native replacement for the reference Material/Medium structs
+Batched replacement for the reference Material/Medium structs
 (rust-pathtracer/src/material.rs:8-299). Where the reference stores one
 struct per hit and mutates it, here a `Material` is a NamedTuple of arrays —
 a single record (scalar fields), a table of records ([M] fields), or a
@@ -178,7 +178,7 @@ def mix_materials(a: Material, b: Material, t) -> Material:
 def gather_material(table: Material, idx: jnp.ndarray) -> Material:
     """Select per-ray materials from a stacked [M,...] material table.
 
-    This is the TPU-native version of Scene::closest_hit writing material
+    This is the batched version of Scene::closest_hit writing material
     fields per hit (renderer/src/analytical.rs:56-117): a differentiable
     gather, so pixel gradients flow back into the material table.
     """

@@ -8,7 +8,7 @@ ops/megakernel_mesh.py, the same fused Pallas fast path. Intersection is
 two-sided Möller-Trumbore (ops/intersect.ray_triangle) with first-min-wins
 closest-hit like the reference's strict `<` chains.
 
-TPU-first design notes: triangle VERTEX POSITIONS are differentiable pytree
+Design notes: triangle VERTEX POSITIONS are differentiable pytree
 leaves (vertex gradients flow through Möller-Trumbore automatically — mesh
 geometry is optimizable exactly like sphere centers); triangle INDICES and
 per-triangle material ids are static structure (they enter the kernel's

@@ -1,7 +1,7 @@
 """Ray record with precomputed slab-test fields.
 
 Replaces rust-pathtracer/src/ray.rs:6-48. The integrator's hot path carries
-bare (origin, direction) V3 pairs — on TPU the precomputed fields would be
+bare (origin, direction) V3 pairs — on the batched path the precomputed fields would be
 dead weight in the scan carry — but the record is part of the reference's
 public API surface (and its inv_direction/sign fields are the standard
 inputs to slab AABB tests, which BVH-style scenes need), so it lives here

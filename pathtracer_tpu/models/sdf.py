@@ -2,7 +2,7 @@
 
 The reference lists SDF rendering as its raison d'etre and its TODO
 ("Signed distance functions", /root/reference/Readme.md:18,76-84) but ships
-only analytical spheres. This module delivers it TPU-first as a second
+only analytical spheres. This module delivers it as a second
 implementation of the scene protocol (models/scene.py — the `trait Scene`
 analog, rust-pathtracer/src/scene.rs:5-90): `closest_hit` is a sphere-trace
 loop instead of closed-form intersections, and every SDF parameter (centers,

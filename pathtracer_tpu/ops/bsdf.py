@@ -7,7 +7,7 @@ specular refraction, and clearcoat (GTR1), combined by luminance-weighted
 lobe probabilities. The reference's early returns and branch-per-lobe
 control flow become masked selects over the ray batch — every lane computes
 all lobes and keeps its own (XLA fuses this into one elementwise chain; no
-divergence penalty on the VPU).
+branch divergence).
 
 Verbatim quirk ledger (see SURVEY.md §7 "hard parts"):
 - disney_sample computes the reflect/refract Fresnel with the *previous*
@@ -68,7 +68,7 @@ def _guard_div(a, b, mask):
     (dot(n, v) == 0 after f32 rounding): the lobe denominators 4*l.z*v.z /
     v.z collapse to 0 together with their Smith-G numerators, and the
     resulting 0/0 NaN would leak through the lobe select into throughput
-    (observed ~1 per 10^7 paths on TPU). Returning 0 is the physical limit:
+    (observed ~1 per 10^7 paths in float32). Returning 0 is the physical limit:
     G -> 0 at grazing, the lobe is unsampleable there."""
     m = mask & (b != 0.0)
     safe_b = jnp.where(m, b, 1.0)

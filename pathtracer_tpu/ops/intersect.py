@@ -3,7 +3,7 @@
 Replaces the reference's scalar Option<F>-returning tests
 (renderer/src/analytical.rs:163-213 and the copy inside Scene::sample_lights,
 rust-pathtracer/src/scene.rs:38-63). Misses are encoded as +inf distances so
-`closest wins` reduces to jnp.minimum over a batch — the TPU-native
+`closest wins` reduces to jnp.minimum over a batch — the batched
 replacement for the reference's if-let chains.
 """
 

@@ -1,50 +1,42 @@
-"""Pallas TPU megakernel: the whole per-pixel path loop fused in one kernel.
+"""Fused path-tracing kernel: the whole per-ray path loop in one Pallas call.
 
-This is the M5 performance path (SURVEY.md §7): where the XLA integrator
-(integrator/tracer.py) walks the bounce loop as a lax.scan whose carry
-round-trips HBM every bounce, this kernel keeps a tile of rays resident in
-VMEM for the ENTIRE path — camera ray generation, scene intersection, the
-emitter pass, next-event estimation with MIS, and four-lobe Disney BSDF
-sampling (reference: rust-pathtracer/src/tracer.rs:22-220 + 441-626,
-renderer/src/analytical.rs:28-145) — writing only the final radiance back to
-HBM. Two randomness modes:
+Where the XLA integrator (integrator/tracer.py) walks the bounce loop as a
+lax.scan whose carry (the path state, about 22 planes) and the per-frame
+uniform tensor round-trip device memory every bounce, this kernel keeps each
+ray's state in registers for the ENTIRE path — camera ray generation, scene
+intersection, the emitter pass, next-event estimation with MIS, and
+four-lobe Disney BSDF sampling (reference: rust-pathtracer/src/tracer.rs:
+22-220 + 441-626, renderer/src/analytical.rs:28-145) — writing only the final
+radiance back. It is lowered through Triton (`backend="triton"`): one block
+is a (tile_rows, LANES) tile of rays, one ray per thread. Two randomness
+modes:
 
 - uniforms="hbm": consumes the SAME threefry uniforms as the XLA path
-  (integrator.tracer.draw_uniforms), streamed per tile. Bitwise-identical
-  sampling decisions, so the kernel is validated allclose against the XLA
-  integrator, which is itself validated against the f64 CPU oracle.
-- uniforms="inkernel": the TPU core PRNG (pltpu.prng_random_bits) generates
-  uniforms in VMEM, seeded per (frame, tile). No uniform tensor ever touches
-  HBM: zero bandwidth, different but equally-valid sample sequence
-  (validated statistically against the XLA estimator and by KS/uniformity
-  tests, tests/test_rng.py).
+  (integrator.tracer.draw_uniforms), loaded per tile. Identical sampling
+  decisions, so the kernel is validated against the XLA integrator, which
+  is itself validated against the f64 CPU oracle.
+- uniforms="inkernel": the counter-based hash of ops/rng.py, evaluated
+  where each uniform is consumed — no uniform tensor touches device memory.
 
 Scene support is pluggable via `KernelBackend` (the in-kernel analog of the
 reference's `trait Scene`, rust-pathtracer/src/scene.rs:5-90): this module
 ships the analytical demo backend (2 spheres + checker plane + sky + L
 lights of any type, any material table size M, specialized by static
-unrolling — no per-lane gathers, only where-chains); ops/megakernel_sdf.py
-adds the sphere-traced SDF backend. The FULL integrator surface runs
-fused: volumetric media (Absorb / Emissive / HG-Scatter, compiled in only
-when the material table declares one) and procedural material hooks
-(Scene.procedural_fn, traced into the kernel against a rebuilt params
-view) — so render_frame_pallas is a drop-in for render_frame on every
-packed scene, not a restricted demo path.
+unrolling — where-chains, no per-lane gathers); ops/megakernel_sdf.py,
+ops/megakernel_mesh.py and ops/megakernel_bigmesh.py add the sphere-traced
+SDF, small-mesh and kilo-triangle backends. Volumetric media (compiled in
+only when the material table declares one) and procedural material hooks
+(Scene.procedural_fn, traced into the kernel) run fused too.
 
 The kernel reuses the SAME pure jnp building blocks as the XLA path
 (ops.bsdf disney_sample/disney_eval, ops.sampling, ops.intersect,
-models.material.finalize_material): Pallas traces them straight into the
-kernel body, so there is exactly one implementation of the BSDF math.
+models.material.finalize_material), so there is one implementation of the
+BSDF math.
 
 Differentiable: `render_frame_pallas` routes through a jax.custom_vjp whose
-backward pass is a SECOND Pallas kernel that replays the tile's path
-(same PRNG stream / same HBM uniforms) and runs the vector-Jacobian product
-of the pure path function against the incoming image cotangent entirely in
-VMEM — per-bounce rematerialization keeps residuals to the loop carry. The
-gradient estimator is the same detached-sampling policy as the XLA
-integrator (ops/bsdf.disney_sample detach=True), so gradients are validated
-against the XLA path's on identical uniforms (tests/test_megakernel_grad.py)
-and, transitively, the f64 finite-difference oracle (tests/test_grad.py).
+backward pass is the VJP of the XLA integrator on the kernel's own sample
+stream (the same threefry rows, or the hash evaluated in XLA) for the same
+rays — the detached-sampling estimator (integrator.tracer detach=True).
 """
 
 from __future__ import annotations
@@ -56,12 +48,13 @@ import jax
 import jax.numpy as jnp
 import numpy as _np
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as plt
 
 from ..integrator.tracer import EPS, U_PER_BOUNCE, VERBATIM, Quirks, draw_uniforms
 from ..models.analytical import AnalyticalParams
 from ..models.material import Material, Medium, default_material, finalize_material
 from ..models.scene import Scene, SurfaceHit
+from ..ops import rng
 from ..ops.bsdf import disney_eval, disney_sample
 from ..ops.intersect import ray_plane, ray_rect, ray_sphere
 from ..ops.sampling import (
@@ -83,7 +76,8 @@ from ..ops.vecmath import (
     zeros3,
 )
 
-LANES = 128  # TPU vector lane width; tiles are (tile_rows, 128) rays.
+LANES = 32  # rays per tile row: one warp's width.
+TILE_ROWS = 4  # default tile height: 128 rays per block, one per thread.
 
 # ---------------------------------------------------------------------------
 # Scene parameter packing: host pytree -> flat f32 vector -> in-kernel scalars
@@ -172,9 +166,7 @@ def pack_lights(scene: Scene) -> list:
 def pack_materials(materials: Material, with_medium: bool = True) -> list:
     """Material table [M] (material.rs:48-78). The Medium fields are packed
     only for media-declaring scenes (with_medium == cfg.has_media) so
-    media-free kernels keep the lean 19-scalar record — fewer SMEM reads
-    in the forward kernel and fewer per-bounce gradient accumulators in
-    the backward kernel."""
+    media-free kernels keep the lean 19-scalar record."""
     f32 = jnp.float32
     vals: list = []
     M = int(materials.roughness.shape[0])
@@ -195,13 +187,7 @@ def pack_materials(materials: Material, with_medium: bool = True) -> list:
 def pack_scene(scene: Scene, width: int, height: int,
                with_medium: bool = True) -> jnp.ndarray:
     """Flatten camera-derived vectors + analytical params + lights into one
-    f32 vector consumed by the kernel via SMEM scalar reads.
-
-    Pure jnp on the scene pytree leaves, so it is differentiable: the
-    backward kernel produces d(loss)/d(packed vector) and jax.vjp of THIS
-    function carries it back onto scene parameters (materials, lights,
-    geometry, camera) with no extra code.
-    """
+    f32 vector read by the kernel as scalars (one load per value)."""
     p: AnalyticalParams = scene.params
     f32 = jnp.float32
 
@@ -223,21 +209,23 @@ def pack_scene(scene: Scene, width: int, height: int,
     vals += pack_materials(p.materials, with_medium)
 
     flat = jnp.stack([jnp.asarray(x, f32) for x in vals])
-    return flat[None, :]  # (1, P) for SMEM
+    return flat[None, :]  # (1, P)
 
 
-class _TupleRef:
-    """Adapter: lets the scalar-view classes read from a tuple of traced
-    scalars with the same `ref[0, i]` indexing they use on an SMEM Ref —
-    the backward kernel passes packed params to jax.vjp as individual
-    scalars so their cotangents come back as scalars (no in-kernel
-    scatter-adds)."""
+class _LaneRef:
+    """Read adapter for the packed scalar ref: every value comes back
+    broadcast to the tile shape. On the GPU a thread computes a "scalar"
+    once either way, so this costs nothing there; it keeps scene-derived
+    selects (e.g. `jnp.where(light_type == 1.0, 0.5, 1.0)`) off the Triton
+    lowering's scalar select_n path, which types a weak float literal
+    operand as the predicate's i1."""
 
-    def __init__(self, vals):
-        self.vals = vals
+    def __init__(self, ref, shape):
+        self._ref = ref
+        self._shape = shape
 
     def __getitem__(self, idx):
-        return self.vals[idx[1]]
+        return jnp.broadcast_to(self._ref[idx], self._shape)
 
 
 class _CommonScalars:
@@ -552,19 +540,14 @@ def _sample_lights_emitter(sc, ro: V3, rd: V3, gate_dist):
     return hit, dist, pdf, emission
 
 
-def _sample_light_unrolled(sc, scatter_pos: V3, u, detach: bool = False):
+def _sample_light_unrolled(sc, scatter_pos: V3, u):
     """Uniform light pick + type-dispatched surface sampling
     (tracer.rs:136-145 + 173-220) unrolled as a where-chain over the
     static light list. Returns (normal, emission, direction, dist, pdf,
-    area) for the picked light, all lanes.
-
-    detach mirrors integrator.tracer.sample_light: the sampled light
-    geometry (direction, distance, normal, pdf) is stop-gradiented,
-    emission keeps its gradient (light-intensity recovery)."""
+    area) for the picked light, all lanes."""
     u_pick, r1, r2 = u
     shape = jnp.shape(scatter_pos.x)
     L = len(sc.lights)
-    sg = jax.lax.stop_gradient if detach else (lambda x: x)
 
     idx = jnp.clip((u_pick * L).astype(jnp.int32), 0, L - 1)
 
@@ -611,7 +594,7 @@ def _sample_light_unrolled(sc, scatter_pos: V3, u, detach: bool = False):
         pdf = jnp.where(is_dst, 1.0, pdf)
 
         emission = lt["emission"] * float(L)  # tracer.rs:214
-        return sg(normal), emission, sg(direction), sg(dist), sg(pdf), lt["area"]
+        return normal, emission, direction, dist, pdf, lt["area"]
 
     normal, emission, direction, dist, pdf, area = one(sc.lights[L - 1])
     # broadcast the last light's sample to full lanes, then select
@@ -633,7 +616,7 @@ def _sample_light_unrolled(sc, scatter_pos: V3, u, detach: bool = False):
 
 def _direct_light(
     sc, any_hit_fn, rd: V3, fhp: V3, ffnormal: V3, material, eta, u,
-    detach: bool = False, active=None,
+    active=None,
 ):
     """NEE (tracer.rs:126-170) — surface variant: Disney BSDF eval + MIS.
 
@@ -648,7 +631,7 @@ def _direct_light(
         return zeros3(shape, jnp.float32)
     scatter_pos = fhp + ffnormal * EPS
     normal, emission, direction, dist, pdf, area = _sample_light_unrolled(
-        sc, scatter_pos, u, detach
+        sc, scatter_pos, u
     )
     facing = dot(direction, normal) < 0.0  # tracer.rs:148
     relevant = facing if active is None else (facing & active)
@@ -663,8 +646,7 @@ def _direct_light(
 
 
 def _scatter_direct_light(
-    sc, any_hit_fn, rd: V3, scatter_pos: V3, g, u, detach: bool = False,
-    active=None,
+    sc, any_hit_fn, rd: V3, scatter_pos: V3, g, u, active=None,
 ):
     """NEE from a volumetric scatter point (integrator.tracer
     _scatter_direct_light): the HG phase function p(cosθ; g) replaces the
@@ -674,7 +656,7 @@ def _scatter_direct_light(
     if len(sc.lights) == 0:
         return zeros3(shape, jnp.float32)
     normal, emission, direction, dist, pdf, area = _sample_light_unrolled(
-        sc, scatter_pos, u, detach
+        sc, scatter_pos, u
     )
     facing = dot(direction, normal) < 0.0  # tracer.rs:148
     relevant = facing if active is None else (facing & active)
@@ -719,15 +701,10 @@ class KernelBackend(NamedTuple):
     specialize: Callable | None = None  # (scene, backend) -> backend
     march_based: bool = False  # intersection cost scales with ray length
     # Large-table backends (ops/megakernel_bigmesh.py) ship per-scene
-    # arrays too big for the packed SMEM scalar vector: `extra_of(scene)`
+    # tables too big for the packed scalar vector: `extra_of(scene)`
     # returns a tuple of f32 arrays handed to the kernel as whole-array
-    # refs (one per entry of `extra_spaces`, "vmem" | "smem"); `view`
-    # then receives them as a third argument. Backends with extras are
-    # FORWARD-ONLY on the Pallas path (the replay-VJP backward kernel
-    # carries packed params as scalars; use the XLA path for gradients).
+    # refs read by index; `view` then receives them as a third argument.
     extra_of: Callable | None = None  # (scene) -> tuple of arrays
-    extra_spaces: tuple = ()  # "vmem" | "smem" per extra
-    fwd_vmem_limit_mb: int | None = None  # raise the scoped-VMEM cap
 
 
 def _analytical_meta(scene: Scene) -> tuple:
@@ -785,6 +762,19 @@ def register_backend(backend: KernelBackend) -> None:
     _BACKENDS[backend.name] = backend
 
 
+def kernel_family(scene: Scene) -> str | None:
+    """The family device.use_kernel routes on: the claiming backend's name,
+    "media" for the analytical backend with media compiled in, or None when
+    no backend claims the scene."""
+    try:
+        name = _resolve_backend(scene).name
+    except NotImplementedError:
+        return None
+    if name == "analytical" and _detect_media(scene):
+        return "media"
+    return name
+
+
 def _resolve_backend(scene: Scene) -> KernelBackend:
     """Pick the kernel backend whose `matches` claims this Scene."""
     try:
@@ -802,8 +792,7 @@ def _resolve_backend(scene: Scene) -> KernelBackend:
 
 
 # ---------------------------------------------------------------------------
-# The generic path loop (shared by forward kernel, backward kernel, and the
-# SDF backend)
+# The generic path loop (shared by every backend)
 # ---------------------------------------------------------------------------
 
 
@@ -816,16 +805,83 @@ def _mask3(mask, v: V3) -> V3:
     )
 
 
-def _raygen(sc, shape, lane_base, spp, width, height, ox, oy):
-    """Camera ray generation (tracer.rs:36-47 + pinhole.rs:38-61) for a
-    tile whose flat (pixel*spp) indices start at lane_base."""
-    n_pix = width * height
-    lane = (
-        lane_base
-        + jax.lax.broadcasted_iota(jnp.int32, shape, 0) * LANES
-        + jax.lax.broadcasted_iota(jnp.int32, shape, 1)
-    )
-    pid = jnp.minimum(lane // spp, n_pix - 1)
+def num_warps_for(tile_rows: int) -> int:
+    """Warps per block for a (tile_rows, LANES) tile: one ray per thread.
+
+    Triton blocks must have power-of-two sides, and the path state (about
+    70 live values per ray) has to fit in a thread's registers, so a tile
+    row is one warp and tile_rows must be a power of two up to 16."""
+    if tile_rows < 1 or tile_rows > 16 or tile_rows & (tile_rows - 1):
+        raise ValueError(
+            f"tile_rows must be a power of two in [1, 16], got {tile_rows}"
+        )
+    return tile_rows * LANES // 32
+
+
+def pad_pow2(sv: jnp.ndarray) -> jnp.ndarray:
+    """Pad the packed (1, P) scalar vector to (1, 2^k) >= P: Triton block
+    shapes are powers of two. Padding is zeros, never read."""
+    p = int(sv.shape[1])
+    p2 = 1 << max(0, (p - 1).bit_length())
+    return jnp.pad(sv, ((0, 0), (0, p2 - p)))
+
+
+def _tile_width(tiling: str, spp: int) -> int | None:
+    """Pixel width of one tile under 2-D "block" tiling, or None for flat
+    ray ranges. A block tile covers tile_rows pixel rows x LANES/spp pixel
+    columns, a pixel's spp samples in adjacent lanes."""
+    if tiling == "flat":
+        return None
+    if LANES % spp != 0:
+        raise ValueError(
+            f"tiling='block' requires spp to divide {LANES}, got {spp}"
+        )
+    return LANES // spp
+
+
+def resolve_tiling(tiling: str, spp: int) -> str:
+    """"auto" -> compact 2-D pixel blocks whenever spp divides the lane
+    width (spatially coherent tiles keep the SDF march's block-level early
+    exit tight), else flat ray ranges."""
+    if tiling == "auto":
+        return "block" if LANES % spp == 0 else "flat"
+    if tiling not in ("flat", "block"):
+        raise ValueError(f"tiling must be 'auto'|'flat'|'block', got {tiling!r}")
+    return tiling
+
+
+def num_tiles_for(width: int, height: int, spp: int, tile_rows: int,
+                  tiling: str) -> int:
+    """Tiles (blocks) covering the frame."""
+    bw = _tile_width(tiling, spp)
+    if bw is None:
+        return -(-(width * height * spp) // (tile_rows * LANES))
+    return -(-width // bw) * -(-height // tile_rows)
+
+
+def _lane_rays(tile, row, col, tile_rows, width, height, spp, tiling,
+               xp=jnp):
+    """Global ray index (pixel * spp + sample) of lane (row, col) of tile
+    `tile`. Broadcasting jnp: the kernel passes a scalar tile and iota
+    planes, the XLA twin whole [T, tile_rows, LANES] grids (xp=numpy for
+    the static lane map). Flat tiling
+    leaves padded lanes past the frame's last ray (cropped on output);
+    block tiling clamps edge tiles to the frame border."""
+    bw = _tile_width(tiling, spp)
+    if bw is None:
+        return tile * (tile_rows * LANES) + row * LANES + col
+    nbx = -(-width // bw)
+    by = tile // nbx
+    bx = tile - by * nbx
+    px = xp.minimum(bx * bw + col // spp, width - 1)
+    py = xp.minimum(by * tile_rows + row, height - 1)
+    return (py * width + px) * spp + col % spp
+
+
+def _raygen(sc, ray, spp, width, height, ox, oy):
+    """Camera ray generation (tracer.rs:36-47 + pinhole.rs:38-61) for rays
+    with global indices `ray`."""
+    pid = jnp.minimum(ray // spp, width * height - 1)
     px = (pid % width).astype(jnp.float32)
     py = (pid // width).astype(jnp.float32)
     cx = px * jnp.float32(1.0 / width)
@@ -837,76 +893,7 @@ def _raygen(sc, shape, lane_base, spp, width, height, ox, oy):
         + sc.vertical * (jnp.float32(1.0 / height) * oy + cy)
     )
     rd = normalize(rd)
-    ro = V3(
-        jnp.broadcast_to(sc.cam_origin.x, shape),
-        jnp.broadcast_to(sc.cam_origin.y, shape),
-        jnp.broadcast_to(sc.cam_origin.z, shape),
-    )
-    return ro, rd
-
-
-def _tile_geometry(tiling: str, tile_rows: int, spp: int = 1):
-    """Pixel geometry of one (tile_rows, LANES) tile under 2-D tiling, or
-    None for flat ray-range tiling: (bw, bh, sub) where the tile covers a
-    compact (bh x bw) PIXEL rectangle, each lane row folding `sub` pixel
-    rows, with a pixel's spp samples in adjacent lanes
-    (bw * sub * spp == LANES).
-
-    "block" = (LANES/spp)-wide strips, tile_rows high (sub=1); "square"
-    (spp == 1 only) folds each 128-lane row onto 2 pixel rows of 64 — a
-    squarer region with a smaller diameter, which tightens the SDF march
-    envelope further than the 4:1 "block" rectangle (measured a wash; see
-    BASELINE.md)."""
-    if tiling == "flat":
-        return None
-    if tiling == "square":
-        if spp != 1:
-            raise ValueError("tiling='square' requires spp == 1")
-        return 64, tile_rows * 2, 2
-    if LANES % spp != 0:
-        raise ValueError(
-            f"tiling='block' requires spp to divide {LANES}, got {spp}"
-        )
-    return LANES // spp, tile_rows, 1
-
-
-def _raygen_block(sc, shape, global_tile, width, height, ox, oy, bw=LANES,
-                  sub=1, spp=1):
-    """Camera ray generation for 2-D pixel-block tiling: tile `global_tile`
-    covers a compact (bh x bw) pixel rectangle at block coords
-    (by, bx) = divmod(tile, cdiv(width, bw)), where each lane row folds
-    `sub` pixel rows of width bw and a pixel's spp samples sit in adjacent
-    lanes: col = (subrow * bw + pxcol) * spp + sample.
-
-    Spatial coherence is the point: a flat (tile_rows*LANES)-ray range at
-    1080p spans 2+ full scanlines, so the SDF march's block-granular early
-    exit waits on the worst lane across a 1920-pixel-wide sliver; a compact
-    rectangle tightens the per-tile march envelope. Out-of-frame lanes of
-    edge blocks clamp to the frame border (their output is cropped by the
-    host-side assembly; in-kernel RNG consumption is per-tile and identical
-    for every lane, so clamping costs nothing)."""
-    tile_rows = shape[0]
-    nbx = pl.cdiv(width, bw)
-    by = global_tile // nbx
-    bx = global_tile - by * nbx
-    row = jax.lax.broadcasted_iota(jnp.int32, shape, 0)
-    col = jax.lax.broadcasted_iota(jnp.int32, shape, 1)
-    px_i = jnp.minimum(bx * bw + (col // spp) % bw, width - 1)
-    py_i = jnp.minimum(
-        by * (tile_rows * sub) + row * sub + col // (bw * spp),
-        height - 1,
-    )
-    px = px_i.astype(jnp.float32)
-    py = py_i.astype(jnp.float32)
-    cx = px * jnp.float32(1.0 / width)
-    cy = (jnp.float32(height - 1) - py) * jnp.float32(1.0 / height)
-
-    rd = (
-        (sc.lower_left - sc.cam_origin)
-        + sc.horizontal * (jnp.float32(1.0 / width) * ox + cx)
-        + sc.vertical * (jnp.float32(1.0 / height) * oy + cy)
-    )
-    rd = normalize(rd)
+    shape = jnp.shape(ray)
     ro = V3(
         jnp.broadcast_to(sc.cam_origin.x, shape),
         jnp.broadcast_to(sc.cam_origin.y, shape),
@@ -944,14 +931,11 @@ def _tile_init_carry(ro: V3, rd: V3, quirks: Quirks, has_media: bool = False):
 
 
 def _tile_bounce(sc, backend: KernelBackend, carry, u6, quirks: Quirks,
-                 detach: bool = False, has_media: bool = False,
-                 procedural=None):
+                 has_media: bool = False, procedural=None):
     """One bounce of the fused tile loop (tracer.rs:61-103) — identical
     math to integrator.tracer.make_bounce_step, including participating
     media when the scene declares any (has_media; the media code is
-    statically elided otherwise so media-free scenes pay nothing).
-    Standalone so the reverse-sweep backward kernel can re-linearize it
-    one bounce at a time."""
+    statically elided otherwise so media-free scenes pay nothing)."""
     (ro, rd, radiance, throughput, alive, prev_pdf, prev_l, prev_hit_dist) = carry[:8]
     if has_media:
         med_type, med_density, med_color, med_aniso = carry[8:]
@@ -963,8 +947,8 @@ def _tile_bounce(sc, backend: KernelBackend, carry, u6, quirks: Quirks,
         # early exit still waits on EVERY lane's march. Pointing dead
         # lanes from far above the scene straight up makes them escape in
         # one march block instead of re-tracing their stale full-distance
-        # ray every remaining bounce (at depth 4, 46% of lane-bounces are
-        # dead — measured by measure_occupancy_pallas). Bit-identical for
+        # ray every remaining bounce (measure_occupancy_pallas counts the
+        # dead lane-bounces). Bit-identical for
         # alive lanes; no RNG draws are involved. Closed-form backends
         # skip this (the where-selects cost more than they save there).
         one = jnp.ones(jnp.shape(rd.x), jnp.float32)
@@ -977,8 +961,7 @@ def _tile_bounce(sc, backend: KernelBackend, carry, u6, quirks: Quirks,
         # Post-hit procedural material hook (Scene.procedural_fn — the
         # realization of the reference's dormant rhai scripting surface,
         # material.rs:77), traced straight into the kernel. The params
-        # view is rebuilt from the packed scalars, so hook reads stay
-        # differentiable through pack_scene.
+        # view is rebuilt from the packed scalars.
         material = procedural(
             sc.to_params(), SurfaceHit(t=t, normal=normal, material=material),
             ro, rd,
@@ -1001,7 +984,6 @@ def _tile_bounce(sc, backend: KernelBackend, carry, u6, quirks: Quirks,
         # integrator.tracer.make_bounce_step (Absorb = Beer-Lambert,
         # Emissive = color*density*t, Scatter = exponential free flight
         # with HG-phase NEE + continuation).
-        sg_ = jax.lax.stop_gradient if detach else (lambda x: x)
         seg = jnp.where(hit, hit_dist, 0.0)
         seg_on = alive & hit & (med_type != 0)
         absorbing = seg_on & (med_type == 1)
@@ -1024,15 +1006,14 @@ def _tile_bounce(sc, backend: KernelBackend, carry, u6, quirks: Quirks,
             alive & hit & (med_type == 2) & (med_density > 0.0)
             & (s_free < hit_dist)
         )
-        scatter_pos = ro + rd * sg_(jnp.where(scat, s_free, 0.0))
+        scatter_pos = ro + rd * jnp.where(scat, s_free, 0.0)
         throughput = where3(scat, throughput * med_color, throughput)
         ld_s = _scatter_direct_light(
             sc, backend.any_hit, rd, scatter_pos, med_aniso, u6[0:3],
-            detach=detach, active=scat,
+            active=scat,
         )
         radiance = radiance + _mask3(scat, ld_s * throughput)
         l_hg = sample_hg(rd, med_aniso, u6[3], u6[4])
-        l_hg = V3(sg_(l_hg.x), sg_(l_hg.y), sg_(l_hg.z))
         pdf_hg = hg_phase(dot(rd, l_hg), med_aniso)
     else:
         scat = jnp.zeros(jnp.shape(rd.x), bool)
@@ -1070,12 +1051,12 @@ def _tile_bounce(sc, backend: KernelBackend, carry, u6, quirks: Quirks,
 
     ld = _direct_light(
         sc, backend.any_hit, rd, fhp, ffnormal, material, eta, u6[0:3],
-        detach=detach, active=shade,
+        active=shade,
     )
     radiance = radiance + _mask3(shade, ld * throughput)
 
     bs = disney_sample(
-        material, eta, -rd, ffnormal, prev_l, tuple(u6[3:6]), detach
+        material, eta, -rd, ffnormal, prev_l, tuple(u6[3:6])
     )
     cont = shade & (bs.pdf > 0.0)
     safe_pdf = jnp.where(bs.pdf > 0.0, bs.pdf, 1.0)
@@ -1094,7 +1075,7 @@ def _tile_bounce(sc, backend: KernelBackend, carry, u6, quirks: Quirks,
         # HG-sampled direction (still inside the medium).
         ro_next = where3(scat, scatter_pos, ro_next)
         rd_next = where3(scat, l_hg, rd_next)
-        prev_pdf_new = jnp.where(scat, sg_(pdf_hg), prev_pdf_new)
+        prev_pdf_new = jnp.where(scat, pdf_hg, prev_pdf_new)
         prev_l_new = where3(scat, l_hg, prev_l_new)
         alive = cont | passthru | scat
 
@@ -1131,447 +1112,46 @@ def _tile_bounce(sc, backend: KernelBackend, carry, u6, quirks: Quirks,
     )
 
 
-def _trace_tile(
-    sc,
-    backend: KernelBackend,
-    ro: V3,
-    rd: V3,
-    us,  # [depth][per-bounce uniforms], pre-drawn
-    depth: int,
-    quirks: Quirks,
-    detach: bool = False,
-    has_media: bool = False,
-    procedural=None,
-    interpret: bool = False,
-) -> V3:
-    """The fused per-tile bounce loop (the vectorized tracer.rs:61-103).
-    Returns the tile's radiance.
 
-    Compiled (Mosaic): statically unrolled over bounces — best scheduling.
-    Measured and rejected there: a whole-tile liveness lax.cond around
-    bounces 1..depth (skip when every lane is dead — bit-identical since
-    dead lanes leave the carry unchanged). On a v5e it ran the analytical
-    kernel 5x SLOWER (the scf.if boundary forces all ~70 live carry
-    vectors through VMEM instead of registers) and tripled Mosaic compile
-    time, for +4% on the SDF kernel. Straight-line unroll wins.
 
-    Interpret (the CPU parity-test path): a lax.scan over bounces — the
-    unrolled depth-4 graph takes XLA-CPU ~20x longer to COMPILE than
-    depth-1 (measured 113s vs 6s at 16x8); scanning compiles the bounce
-    body once. Identical op sequence per bounce, so results match the
-    unrolled form."""
+def _occ_width(depth: int) -> int:
+    """Power-of-two width of the per-tile occupancy row (>= depth)."""
+    return 1 << max(0, (depth - 1).bit_length())
+
+
+def _trace_path(view, backend, ro: V3, rd: V3, uniform, depth: int,
+                quirks: Quirks, has_media: bool = False, procedural=None,
+                instrument: bool = False):
+    """The fused per-ray bounce loop (the vectorized tracer.rs:61-103) as
+    one fori_loop over bounces. Returns (radiance, counts): counts is a
+    (1, _occ_width(depth)) i32 row of alive-lane counts ENTERING each
+    bounce when instrument=True (the in-kernel analog of
+    integrator.tracer.measure_occupancy), else None.
+
+    `view()` rebuilds the backend's scalar view inside the loop body, so
+    the scene scalars are re-read per bounce instead of held in registers
+    across the loop."""
     carry = _tile_init_carry(ro, rd, quirks, has_media)
-    if not interpret:
-        for b in range(depth):
-            carry = _tile_bounce(
-                sc, backend, carry, tuple(us[b]), quirks, detach, has_media,
-                procedural,
-            )
-        return carry[2]
+    occ_cols = jax.lax.broadcasted_iota(jnp.int32, (1, _occ_width(depth)), 1)
+    counts = jnp.zeros((1, _occ_width(depth)), jnp.int32)
 
-    n_u = len(us[0])
-    us_stacked = tuple(
-        jnp.stack([us[b][j] for b in range(depth)]) for j in range(n_u)
-    )
-
-    def body(c, u_slices):
-        return (
-            _tile_bounce(
-                sc, backend, c, u_slices, quirks, detach, has_media,
-                procedural,
-            ),
-            None,
-        )
-
-    carry, _ = jax.lax.scan(body, carry, us_stacked)
-    return carry[2]
-
-
-def _trace_tile_counts(sc, backend, ro, rd, us, depth, quirks: Quirks,
-                       has_media: bool = False, procedural=None,
-                       interpret: bool = False):
-    """Instrumented twin of _trace_tile: also returns the alive-lane count
-    ENTERING each bounce (the in-kernel analog of
-    integrator.tracer.measure_occupancy — counts[0] == tile size by
-    construction; 1 - counts[b]/tile is what compaction could recover at
-    bounce b). The f32 sum is exact (counts <= tile << 2^24) and avoids a
-    Mosaic bool-vector reduction."""
-
-    def alive_count(carry):
-        return jnp.sum(carry[4].astype(jnp.float32)).astype(jnp.int32)
-
-    carry = _tile_init_carry(ro, rd, quirks, has_media)
-    if not interpret:
-        counts = []
-        for b in range(depth):
-            counts.append(alive_count(carry))
-            carry = _tile_bounce(
-                sc, backend, carry, tuple(us[b]), quirks, False, has_media,
-                procedural,
-            )
-        return carry[2], counts
-
-    n_u = len(us[0])
-    us_stacked = tuple(
-        jnp.stack([us[b][j] for b in range(depth)]) for j in range(n_u)
-    )
-
-    def body(c, u_slices):
-        n_alive = alive_count(c)
-        c = _tile_bounce(
-            sc, backend, c, u_slices, quirks, False, has_media, procedural,
-        )
-        return c, n_alive
-
-    carry, counts = jax.lax.scan(body, carry, us_stacked)
-    return carry[2], [counts[b] for b in range(depth)]
-
-
-def _make_uniform_fn(shape, inkernel_rng: bool, u_ref):
-    """Sequential uniform source: TPU core PRNG or HBM rows. Call order IS
-    the stream definition — forward and backward kernels must draw in the
-    same order (both use _draw_all)."""
-    inv24 = float(1.0 / (1 << 24))  # Python literal: folds into the kernel.
-    if inkernel_rng:
-
-        def uniform():
-            # Top 24 bits -> [0,1). Mosaic has no u32->f32 cast; the
-            # shifted value is < 2^24 so an i32 bitcast is exact.
-            bits = pltpu.bitcast(pltpu.prng_random_bits(shape), jnp.uint32)
-            hi24 = pltpu.bitcast(bits >> jnp.uint32(8), jnp.int32)
-            return hi24.astype(jnp.float32) * inv24
-    else:
-
-        def uniform(_counter=[0]):
-            row = _counter[0]
-            _counter[0] += 1
-            return u_ref[row].reshape(shape)
-
-    return uniform
-
-
-def _draw_all(uniform, depth: int, inkernel: bool, has_media: bool = False):
-    """Draw the whole tile stream up front in the canonical order:
-    [cam ox, cam oy, bounce0 u0.., bounce1 u0.., ...].
-
-    hbm mode must consume all U_PER_BOUNCE rows per bounce to stay aligned
-    with the XLA integrator's threefry layout; the in-kernel stream is
-    self-defined and skips the scatter-distance slot u[7] on media-free
-    scenes (where it is dead weight)."""
-    n = U_PER_BOUNCE - 1 if (inkernel and not has_media) else U_PER_BOUNCE
-    ox = uniform()
-    oy = uniform()
-    us = [[uniform() for _ in range(n)] for _ in range(depth)]
-    return ox, oy, us
-
-
-def _seed_tile_rng(seed_scalar, global_tile_id):
-    """Distinct stream per (frame seed, tile): Weyl-mixed tile id
-    (0x9E3779B9 as a signed i32 literal)."""
-    pltpu.prng_seed(seed_scalar + global_tile_id * jnp.int32(-0x61C88647))
-
-
-def _make_kernel(
-    backend: KernelBackend,
-    meta: tuple,
-    width: int,
-    height: int,
-    spp: int,
-    depth: int,
-    tile_rows: int,
-    quirks: Quirks,
-    inkernel_rng: bool,
-    has_media: bool = False,
-    procedural=None,
-    interpret: bool = False,
-    tiling: str = "flat",
-    instrument: bool = False,
-    n_extra: int = 0,
-):
-    """Forward kernel body: raygen + fused path loop + radiance writeback.
-
-    instrument=True appends an i32 SMEM output row with per-bounce
-    alive-lane counts (occ_ref[0, b] = lanes alive entering bounce b).
-    n_extra whole-array backend refs (KernelBackend.extra_of) arrive
-    between u_ref and the outputs and are handed to backend.view."""
-    shape = (tile_rows, LANES)
-    tile = tile_rows * LANES
-
-    def body(sp_ref, seed_ref, base_ref, u_ref, *rest):
-        extra_refs = rest[:n_extra]
-        r_ref, g_ref, b_ref, *occ_refs = rest[n_extra:]
-        if n_extra:
-            sc = backend.view(sp_ref, meta, extra_refs)
-        else:
-            sc = backend.view(sp_ref, meta)
-        tile_id = pl.program_id(0)
-        global_tile = base_ref[0, 0] + tile_id
-
-        if inkernel_rng:
-            _seed_tile_rng(seed_ref[0, 0], global_tile)
-        uniform = _make_uniform_fn(shape, inkernel_rng, u_ref)
-        ox, oy, us = _draw_all(uniform, depth, inkernel_rng, has_media)
-
-        geom = _tile_geometry(tiling, tile_rows, spp)
-        if geom is not None:
-            ro, rd = _raygen_block(
-                sc, shape, global_tile, width, height, ox, oy,
-                bw=geom[0], sub=geom[2], spp=spp,
-            )
-        else:
-            lane_base = global_tile * tile
-            ro, rd = _raygen(sc, shape, lane_base, spp, width, height, ox, oy)
+    def body(b, state):
+        carry, counts = state
         if instrument:
-            radiance, counts = _trace_tile_counts(
-                sc, backend, ro, rd, us, depth, quirks, has_media=has_media,
-                procedural=procedural, interpret=interpret,
-            )
-            # Mosaic rejects per-tile-indexed SMEM rows narrower than the
-            # (8, 128) tile grain, so the counts ride out in lane b of row
-            # 0 of an aligned VMEM block.
-            (occ_ref,) = occ_refs
-            row = jax.lax.broadcasted_iota(jnp.int32, (8, LANES), 0)
-            col = jax.lax.broadcasted_iota(jnp.int32, (8, LANES), 1)
-            acc = jnp.zeros((8, LANES), jnp.int32)
-            for b in range(depth):
-                acc = jnp.where((row == 0) & (col == b), counts[b], acc)
-            occ_ref[:] = acc
-        else:
-            radiance = _trace_tile(
-                sc, backend, ro, rd, us, depth, quirks, has_media=has_media,
-                procedural=procedural, interpret=interpret,
-            )
+            alive = jnp.sum(carry[4].astype(jnp.float32)).astype(jnp.int32)
+            counts = jnp.where(occ_cols == b, alive, counts)
+        first = 2 + b * U_PER_BOUNCE
+        u = tuple(uniform(first + j) for j in range(U_PER_BOUNCE))
+        carry = _tile_bounce(view(), backend, carry, u, quirks, has_media,
+                             procedural)
+        return carry, counts
 
-        r_ref[:] = radiance.x
-        g_ref[:] = radiance.y
-        b_ref[:] = radiance.z
-
-    return body
-
-
-def _make_grad_kernel(
-    backend: KernelBackend,
-    meta: tuple,
-    width: int,
-    height: int,
-    spp: int,
-    depth: int,
-    tile_rows: int,
-    quirks: Quirks,
-    inkernel_rng: bool,
-    n_params: int,
-    has_media: bool = False,
-    procedural=None,
-    interpret: bool = False,
-    tiling: str = "flat",
-):
-    """Backward kernel body: reverse-sweep VJP of the tile's path.
-
-    Replays the forward path with the SAME uniforms as the forward kernel
-    (in-kernel PRNG re-seeded per global tile, or the identical HBM
-    threefry rows), storing only the per-bounce loop CARRIES (~17 tile
-    arrays each); then walks the bounces in REVERSE, re-linearizing ONE
-    bounce at a time with jax.vjp and chaining the carry cotangent — the
-    manual equivalent of jax.checkpoint (whose remat2 primitive Mosaic
-    cannot lower). Peak VMEM is one bounce's linearization residuals plus
-    the carry stack, instead of the whole path's residuals — which is what
-    lets the gradient path run at production depths.
-
-    The packed parameters enter every jax.vjp as P individual scalars (via
-    _TupleRef) so their cotangents come back as scalars (no in-kernel
-    scatter-adds); per-bounce parameter cotangents accumulate into one
-    (1, P) SMEM output across the sequential grid. The gradient estimator
-    is the detached-sampling policy, matching the XLA integrator."""
-    shape = (tile_rows, LANES)
-    tile = tile_rows * LANES
-
-    def body(sp_ref, seed_ref, base_ref, u_ref, ctr_ref, ctg_ref, ctb_ref, g_ref):
-        tile_id = pl.program_id(0)
-        global_tile = base_ref[0, 0] + tile_id
-
-        if inkernel_rng:
-            _seed_tile_rng(seed_ref[0, 0], global_tile)
-        uniform = _make_uniform_fn(shape, inkernel_rng, u_ref)
-        # Draw OUTSIDE anything differentiated: pltpu.prng_random_bits has
-        # no JVP rule, and the uniforms are detached constants anyway.
-        ox, oy, us = _draw_all(uniform, depth, inkernel_rng, has_media)
-        lane_base = global_tile * tile
-
-        svals = tuple(sp_ref[0, i] for i in range(n_params))
-
-        def raygen_p(params):
-            sc = backend.view(_TupleRef(params), meta)
-            geom = _tile_geometry(tiling, tile_rows, spp)
-            if geom is not None:
-                return _raygen_block(
-                    sc, shape, global_tile, width, height, ox, oy,
-                    bw=geom[0], sub=geom[2], spp=spp,
-                )
-            return _raygen(sc, shape, lane_base, spp, width, height, ox, oy)
-
-        def bounce_p(carry, params, u6):
-            sc = backend.view(_TupleRef(params), meta)
-            return _tile_bounce(
-                sc, backend, carry, u6, quirks, detach=True,
-                has_media=has_media, procedural=procedural,
-            )
-
-        # ---- Forward sweep: store the carry entering each bounce ----
-        ro, rd = raygen_p(svals)
-        init_carry = _tile_init_carry(ro, rd, quirks, has_media)
-
-        # Cotangent plumbing. Bool/int carry leaves (alive, med_type) take
-        # float0 per JAX's convention for non-differentiable outputs;
-        # float0 cannot ride an XLA loop carry, so the scan variant strips
-        # them between vjp calls and rebuilds them inside the body.
-        def ct_zero(x):
-            if not jnp.issubdtype(x.dtype, jnp.floating):
-                return _np.zeros(jnp.shape(x), jax.dtypes.float0)
-            return jnp.zeros(jnp.shape(x), x.dtype)
-
-        flat0, carry_treedef = jax.tree_util.tree_flatten(init_carry)
-        nonfloat_pos = {
-            i for i, x in enumerate(flat0)
-            if not jnp.issubdtype(x.dtype, jnp.floating)
-        }
-        leaf_shapes = [jnp.shape(x) for x in flat0]
-
-        def strip(ct_tree):
-            fl = jax.tree_util.tree_leaves(ct_tree)
-            return tuple(x for i, x in enumerate(fl) if i not in nonfloat_pos)
-
-        def unstrip(ct_flat):
-            it = iter(ct_flat)
-            full = [
-                _np.zeros(leaf_shapes[i], jax.dtypes.float0)
-                if i in nonfloat_pos else next(it)
-                for i in range(len(leaf_shapes))
-            ]
-            return jax.tree_util.tree_unflatten(carry_treedef, full)
-
-        if not interpret:
-            # Compiled (Mosaic) path: both sweeps statically unrolled —
-            # best scheduling; code size grows with depth (compiles to
-            # depth 6 at tile_rows=8 on a v5e).
-            carry = init_carry
-            carries = []
-            for b in range(depth):
-                carries.append(carry)
-                carry = bounce_p(carry, svals, tuple(us[b]))
-
-            ct_carry = jax.tree_util.tree_map(ct_zero, carry)
-            ct_carry = (
-                ct_carry[0],
-                ct_carry[1],
-                V3(ctr_ref[:], ctg_ref[:], ctb_ref[:]),
-            ) + ct_carry[3:]
-
-            grads = [jnp.zeros((), jnp.float32) for _ in range(n_params)]
-            for b in reversed(range(depth)):
-                u_b = tuple(us[b])
-                _, vjp = jax.vjp(
-                    lambda c, p: bounce_p(c, p, u_b), carries[b], svals
-                )
-                ct_carry, gp = vjp(ct_carry)
-                grads = [a + g for a, g in zip(grads, gp)]
-        else:
-            # Interpret (CPU parity-test) path: both sweeps as lax.scan —
-            # the bounce body and its vjp trace/compile ONCE instead of
-            # per-depth (the unrolled form took XLA-CPU tens of minutes).
-            n_u = len(us[0])
-            us_stacked = tuple(
-                jnp.stack([us[b][j] for b in range(depth)])
-                for j in range(n_u)
-            )
-
-            def fwd_body(c, u_b):
-                return bounce_p(c, svals, u_b), c  # ys = entering carry
-
-            final_carry, carries_st = jax.lax.scan(
-                fwd_body, init_carry, us_stacked
-            )
-
-            ct0 = jax.tree_util.tree_map(ct_zero, final_carry)
-            ct0 = (
-                ct0[0],
-                ct0[1],
-                V3(ctr_ref[:], ctg_ref[:], ctb_ref[:]),
-            ) + ct0[3:]
-
-            def bwd_body(ct_f, xs):
-                carry_b, u_b = xs
-                _, vjp = jax.vjp(
-                    lambda c, p: bounce_p(c, p, u_b), carry_b, svals
-                )
-                ct_c, gp = vjp(unstrip(ct_f))
-                return strip(ct_c), gp
-
-            ct_f, gp_st = jax.lax.scan(
-                bwd_body, strip(ct0), (carries_st, us_stacked), reverse=True
-            )
-            ct_carry = unstrip(ct_f)
-            grads = [jnp.sum(g) for g in gp_st]  # each [depth] -> scalar
-
-        # Camera gradients: the initial (ro, rd) depend on the packed
-        # camera basis through raygen.
-        _, vjp_rg = jax.vjp(raygen_p, svals)
-        (gp0,) = vjp_rg((ct_carry[0], ct_carry[1]))
-        grads = [a + g for a, g in zip(grads, gp0)]
-
-        @pl.when(tile_id == 0)
-        def _init():
-            for i in range(n_params):
-                g_ref[0, i] = 0.0
-
-        for i in range(n_params):
-            g_ref[0, i] += grads[i]
-
-    return body
-
-
-# ---------------------------------------------------------------------------
-# Host-side wrappers
-# ---------------------------------------------------------------------------
-
-
-def _uniform_rows(key, n: int, n_pad: int, depth: int, spp: int = 1):
-    """Threefry uniforms in the row layout the kernel consumes in draw
-    order: [ox, oy, bounce0 u0..u6, ...] — matches the XLA path's layout
-    exactly. At spp > 1 the XLA integrator (tracer.render_frame) splits
-    the key into spp subkeys and draws a PER-SAMPLE stream over the w*h
-    pixels (lax.map over one_sample); ray r = pid*spp + s therefore takes
-    sample s's stream at pixel index pid, and this builds the same
-    interleaving so spp parity is strict, not just in expectation."""
-    if spp == 1:
-        cam_u, bounce_u = draw_uniforms(key, n, depth, jnp.float32)
-        rows = [cam_u[:, 0], cam_u[:, 1]]
-        for d in range(depth):
-            for j in range(U_PER_BOUNCE):
-                rows.append(bounce_u[d, :, j])
-        u_all = jnp.stack(rows)  # [U, n]
-        return jnp.pad(u_all, ((0, 0), (0, n_pad - n)), constant_values=0.5)
-
-    npix = n // spp
-    draws = [
-        draw_uniforms(k, npix, depth, jnp.float32)
-        for k in jax.random.split(key, spp)
-    ]
-
-    def interleave(per_sample):  # spp arrays of [npix] -> [npix*spp]
-        return jnp.stack(per_sample, axis=1).reshape(-1)
-
-    rows = [
-        interleave([cam_u[:, j] for cam_u, _ in draws]) for j in (0, 1)
-    ]
-    for d in range(depth):
-        for j in range(U_PER_BOUNCE):
-            rows.append(interleave([bu[d, :, j] for _, bu in draws]))
-    u_all = jnp.stack(rows)
-    return jnp.pad(u_all, ((0, 0), (0, n_pad - n)), constant_values=0.5)
+    carry, counts = jax.lax.fori_loop(0, depth, body, (carry, counts))
+    return carry[2], (counts if instrument else None)
 
 
 class _KernelConfig(NamedTuple):
-    """Hashable static configuration shared by the fwd/bwd pallas_calls."""
+    """Hashable static configuration of one kernel launch."""
 
     backend_name: str
     meta: tuple
@@ -1586,256 +1166,7 @@ class _KernelConfig(NamedTuple):
     respect_max_dist: bool = False
     has_media: bool = False
     procedural: Callable | None = None
-    tiling: str = "flat"  # "flat" ray ranges | "block"/"square" 2-D pixel rectangles
-
-
-def _extra_specs(backend: KernelBackend, extras):
-    """Whole-array BlockSpecs for KernelBackend.extra_of inputs (every
-    tile sees the full table; the pipeline hoists the copy)."""
-    specs = []
-    for arr, space in zip(extras, backend.extra_spaces):
-        ms = pltpu.SMEM if space == "smem" else pltpu.VMEM
-        nd = arr.ndim
-        specs.append(pl.BlockSpec(
-            arr.shape, lambda i, _nd=nd: (0,) * _nd, memory_space=ms
-        ))
-    return specs
-
-
-def _pallas_forward(cfg: _KernelConfig, num_tiles: int, sv, seed, base, u_all,
-                    extras=()):
-    backend = _cfg_backend(cfg)
-    tile_rows = cfg.tile_rows
-    tile = tile_rows * LANES
-    kernel = _make_kernel(
-        backend, cfg.meta, cfg.width, cfg.height, cfg.spp, cfg.depth,
-        tile_rows, cfg.quirks, cfg.inkernel_rng, cfg.has_media,
-        cfg.procedural, cfg.interpret, cfg.tiling, n_extra=len(extras),
-    )
-    out_shape = (num_tiles * tile_rows, LANES)
-    out_spec = pl.BlockSpec((tile_rows, LANES), lambda i: (i, 0), memory_space=pltpu.VMEM)
-    if cfg.inkernel_rng:
-        u_spec = pl.BlockSpec((1, tile), lambda i: (0, 0), memory_space=pltpu.VMEM)
-    else:
-        u_rows = 2 + cfg.depth * U_PER_BOUNCE
-        u_spec = pl.BlockSpec((u_rows, tile), lambda i: (0, i), memory_space=pltpu.VMEM)
-    limit = backend.fwd_vmem_limit_mb
-    return pl.pallas_call(
-        kernel,
-        grid=(num_tiles,),
-        in_specs=[
-            pl.BlockSpec((1, sv.shape[1]), lambda i: (0, 0), memory_space=pltpu.SMEM),
-            pl.BlockSpec((1, 1), lambda i: (0, 0), memory_space=pltpu.SMEM),
-            pl.BlockSpec((1, 1), lambda i: (0, 0), memory_space=pltpu.SMEM),
-            u_spec,
-        ] + _extra_specs(backend, extras),
-        out_specs=(out_spec, out_spec, out_spec),
-        out_shape=(
-            jax.ShapeDtypeStruct(out_shape, jnp.float32),
-            jax.ShapeDtypeStruct(out_shape, jnp.float32),
-            jax.ShapeDtypeStruct(out_shape, jnp.float32),
-        ),
-        interpret=cfg.interpret,
-        compiler_params=None if (cfg.interpret or limit is None)
-        else pltpu.CompilerParams(vmem_limit_bytes=limit * 1024 * 1024),
-    )(sv, seed, base, u_all, *extras)
-
-
-def _pallas_forward_occupancy(cfg: _KernelConfig, num_tiles: int, sv, seed,
-                              base, u_all, extras=()):
-    """Instrumented forward launch: (r, g, b, occ) where occ[t, b] is the
-    alive-lane count of tile t entering bounce b."""
-    backend = _cfg_backend(cfg)
-    tile_rows = cfg.tile_rows
-    tile = tile_rows * LANES
-    kernel = _make_kernel(
-        backend, cfg.meta, cfg.width, cfg.height, cfg.spp, cfg.depth,
-        tile_rows, cfg.quirks, cfg.inkernel_rng, cfg.has_media,
-        cfg.procedural, cfg.interpret, cfg.tiling, instrument=True,
-        n_extra=len(extras),
-    )
-    out_shape = (num_tiles * tile_rows, LANES)
-    out_spec = pl.BlockSpec((tile_rows, LANES), lambda i: (i, 0), memory_space=pltpu.VMEM)
-    if cfg.inkernel_rng:
-        u_spec = pl.BlockSpec((1, tile), lambda i: (0, 0), memory_space=pltpu.VMEM)
-    else:
-        u_rows = 2 + cfg.depth * U_PER_BOUNCE
-        u_spec = pl.BlockSpec((u_rows, tile), lambda i: (0, i), memory_space=pltpu.VMEM)
-    return pl.pallas_call(
-        kernel,
-        grid=(num_tiles,),
-        in_specs=[
-            pl.BlockSpec((1, sv.shape[1]), lambda i: (0, 0), memory_space=pltpu.SMEM),
-            pl.BlockSpec((1, 1), lambda i: (0, 0), memory_space=pltpu.SMEM),
-            pl.BlockSpec((1, 1), lambda i: (0, 0), memory_space=pltpu.SMEM),
-            u_spec,
-        ] + _extra_specs(backend, extras),
-        out_specs=(
-            out_spec, out_spec, out_spec,
-            pl.BlockSpec((8, LANES), lambda i: (i, 0), memory_space=pltpu.VMEM),
-        ),
-        out_shape=(
-            jax.ShapeDtypeStruct(out_shape, jnp.float32),
-            jax.ShapeDtypeStruct(out_shape, jnp.float32),
-            jax.ShapeDtypeStruct(out_shape, jnp.float32),
-            jax.ShapeDtypeStruct((num_tiles * 8, LANES), jnp.int32),
-        ),
-        interpret=cfg.interpret,
-        compiler_params=None if (
-            cfg.interpret or backend.fwd_vmem_limit_mb is None
-        ) else pltpu.CompilerParams(
-            vmem_limit_bytes=backend.fwd_vmem_limit_mb * 1024 * 1024
-        ),
-    )(sv, seed, base, u_all, *extras)
-
-
-def measure_occupancy_pallas(
-    scene: Scene,
-    key,
-    width: int,
-    height: int,
-    spp: int = 1,
-    quirks: Quirks = VERBATIM,
-    tile_rows: int = 32,
-    uniforms: str = "inkernel",
-    interpret: bool = False,
-    tiling: str = "auto",
-):
-    """Masked-lane occupancy measured INSIDE the fused Pallas kernel.
-
-    The XLA-path twin (integrator.tracer.measure_occupancy) instruments the
-    slow path; the masking economics actually bind here, in the kernel that
-    sustains ~1e9 rays/s — this runs the real kernel with an extra i32 SMEM
-    output of per-tile alive-lane counts entering each bounce (the masked
-    `break`s of tracer.rs:66-97). Returns a dict:
-      alive_fraction [depth] — mean alive fraction entering each bounce;
-      wasted_fraction        — 1 - mean(alive_fraction): the ceiling on
-                               what ray compaction could recover;
-      counts [num_tiles, depth] raw per-tile counts (spatial structure).
-    """
-    from . import megakernel_sdf  # noqa: F401  (registers "sdf")
-
-    backend = _resolve_backend(scene)
-    has_media = _detect_media(scene)
-    tiling = resolve_tiling(tiling, spp)
-    depth = scene.recursion_depth
-    n = width * height * spp
-    tile = tile_rows * LANES
-    geom = _tile_geometry(tiling, tile_rows, spp)
-    if geom is not None:
-        num_tiles = pl.cdiv(width, geom[0]) * pl.cdiv(height, geom[1])
-    else:
-        num_tiles = pl.cdiv(n, tile)
-
-    meta = backend.meta_of(scene) + (has_media,)
-    respect = backend.name == "analytical" and bool(meta[2])
-    sv = backend.pack(scene, width, height, has_media)
-    if uniforms == "hbm":
-        if geom is not None:
-            u_flat = _uniform_rows(key, n, n, depth, spp)
-            u_all = u_flat[:, _block_lane_to_flat(width, height, tile_rows,
-                                                  geom[0], geom[2], spp)]
-        else:
-            u_all = _uniform_rows(key, n, num_tiles * tile, depth, spp)
-        seed = jnp.zeros((1, 1), jnp.int32)
-    else:
-        seed = jax.random.randint(key, (1, 1), 0, jnp.iinfo(jnp.int32).max, jnp.int32)
-        u_all = jnp.zeros((1, tile), jnp.float32)
-    base = jnp.zeros((1, 1), jnp.int32)
-    cfg = _KernelConfig(
-        backend_name=backend.name, meta=meta, width=width, height=height,
-        spp=spp, depth=depth, tile_rows=tile_rows,
-        quirks=quirks, inkernel_rng=(uniforms != "hbm"), interpret=interpret,
-        respect_max_dist=respect, has_media=has_media,
-        procedural=scene.procedural_fn, tiling=tiling,
-    )
-    extras = backend.extra_of(scene) if backend.extra_of is not None else ()
-    r, g, b, occ = _pallas_forward_occupancy(
-        cfg, int(num_tiles), sv, seed, base, u_all, extras=extras
-    )
-    counts = _np.asarray(occ).reshape(int(num_tiles), 8, LANES)[:, 0, :depth]
-    # Edge tiles carry border-clamped duplicate lanes (block) or padded
-    # rays (flat); their bounce-0 counts still equal the tile size, so the
-    # fractions are a faithful model of lanes the hardware actually runs.
-    alive_fraction = counts.mean(axis=0) / float(tile)
-    return {
-        "alive_fraction": alive_fraction,
-        "wasted_fraction": 1.0 - float(alive_fraction.mean()),
-        "counts": counts,
-        "tile": tile,
-        "num_tiles": int(num_tiles),
-        "tiling": tiling,
-    }
-
-
-def _pallas_backward(cfg: _KernelConfig, num_tiles: int, sv, seed, base, u_all, ct):
-    backend = _cfg_backend(cfg)
-    tile_rows = cfg.tile_rows
-    tile = tile_rows * LANES
-    n_params = int(sv.shape[1])
-    kernel = _make_grad_kernel(
-        backend, cfg.meta, cfg.width, cfg.height, cfg.spp, cfg.depth,
-        tile_rows, cfg.quirks, cfg.inkernel_rng, n_params, cfg.has_media,
-        cfg.procedural, cfg.interpret, cfg.tiling,
-    )
-    ct_spec = pl.BlockSpec((tile_rows, LANES), lambda i: (i, 0), memory_space=pltpu.VMEM)
-    if cfg.inkernel_rng:
-        u_spec = pl.BlockSpec((1, tile), lambda i: (0, 0), memory_space=pltpu.VMEM)
-    else:
-        u_rows = 2 + cfg.depth * U_PER_BOUNCE
-        u_spec = pl.BlockSpec((u_rows, tile), lambda i: (0, i), memory_space=pltpu.VMEM)
-    gsv = pl.pallas_call(
-        kernel,
-        grid=(num_tiles,),
-        in_specs=[
-            pl.BlockSpec((1, n_params), lambda i: (0, 0), memory_space=pltpu.SMEM),
-            pl.BlockSpec((1, 1), lambda i: (0, 0), memory_space=pltpu.SMEM),
-            pl.BlockSpec((1, 1), lambda i: (0, 0), memory_space=pltpu.SMEM),
-            u_spec,
-            ct_spec,
-            ct_spec,
-            ct_spec,
-        ],
-        out_specs=pl.BlockSpec(
-            (1, n_params), lambda i: (0, 0), memory_space=pltpu.SMEM
-        ),
-        out_shape=jax.ShapeDtypeStruct((1, n_params), jnp.float32),
-        interpret=cfg.interpret,
-        # The reverse sweep's per-bounce relinearization residuals + carry
-        # stack exceed the 16 MiB default scoped-VMEM budget for deep or
-        # wide configs (measured anchor: 18.09 MiB at depth 8, tile_rows 8
-        # — "Ran out of memory in memory space vmem ... on stack"; the
-        # stack scales linearly in depth x tile_rows, with media adding
-        # ~8 more carries to the ~17-array bounce record). The v5e has
-        # 128 MiB of VMEM; raise the per-kernel cap exactly where the
-        # estimate says the default budget would OOM — the unlocked
-        # tile_rows=16 backward kernel measures 3.9e8 rays/s fwd+bwd at
-        # 1080p depth 4, 2.8x the best tile_rows=8 number. Configs that
-        # fit the default budget keep it: the raised cap changes the
-        # compiler's buffer placement and was measured to cost
-        # tile_rows=8/depth<=6 ~4x.
-        compiler_params=None if (
-            cfg.interpret or _bwd_vmem_est_mb(cfg) <= 15.0
-        ) else pltpu.CompilerParams(
-            vmem_limit_bytes=100 * 1024 * 1024,
-        ),
-    )(sv, seed, base, u_all, *ct)
-    return gsv
-
-
-def _bwd_vmem_est_mb(cfg: _KernelConfig) -> float:
-    """Estimated scoped-VMEM high-water mark of the backward kernel, MiB.
-
-    Calibrated on the measured 18.09 MiB at (depth 8, tile_rows 8,
-    no media): 0.283 MiB per (bounce x tile_row), +50% with the media
-    path's extra carries (free-flight state, HG throughput). Only the
-    16 MiB-budget DECISION consumes this — it reproduces the round-4
-    two-regime rule at its measured points (depth<=6, tile_rows 8 stays
-    under; depth>=7 or tile_rows>=16 goes over) and extends it smoothly
-    to any (depth, tile_rows, media) combination."""
-    per = 18.09 / (8 * 8)
-    media_factor = 1.5 if cfg.has_media else 1.0
-    return per * cfg.depth * cfg.tile_rows * media_factor
+    tiling: str = "block"  # "flat" ray ranges | "block" 2-D pixel rectangles
 
 
 def _cfg_backend(cfg: _KernelConfig) -> KernelBackend:
@@ -1845,139 +1176,219 @@ def _cfg_backend(cfg: _KernelConfig) -> KernelBackend:
     return b
 
 
+def _make_kernel(cfg: _KernelConfig, n_extra: int = 0,
+                 instrument: bool = False):
+    """Kernel body for one (tile_rows, LANES) tile: raygen + fused path
+    loop + radiance writeback (+ the occupancy row when instrumented).
+    n_extra whole-array backend refs (KernelBackend.extra_of) arrive after
+    u_ref and are handed to backend.view."""
+    backend = _cfg_backend(cfg)
+    shape = (cfg.tile_rows, LANES)
+
+    def body(sp_ref, seed_ref, base_ref, u_ref, *rest):
+        extra_refs = rest[:n_extra]
+        r_ref, g_ref, b_ref, *occ_refs = rest[n_extra:]
+
+        def view():
+            ref = _LaneRef(sp_ref, shape)
+            if n_extra:
+                return backend.view(ref, cfg.meta, extra_refs)
+            return backend.view(ref, cfg.meta)
+
+        tile = base_ref[0, 0] + pl.program_id(0)
+        ray = _lane_rays(
+            tile,
+            jax.lax.broadcasted_iota(jnp.int32, shape, 0),
+            jax.lax.broadcasted_iota(jnp.int32, shape, 1),
+            cfg.tile_rows, cfg.width, cfg.height, cfg.spp, cfg.tiling,
+        )
+        if cfg.inkernel_rng:
+            key = rng.ray_key(seed_ref[0, 0], ray)
+
+            def uniform(j):
+                return rng.uniform(key, j)
+        else:
+
+            def uniform(j):
+                return u_ref[j]
+
+        ro, rd = _raygen(view(), ray, cfg.spp, cfg.width, cfg.height,
+                         uniform(0), uniform(1))
+        radiance, counts = _trace_path(
+            view, backend, ro, rd, uniform, cfg.depth, cfg.quirks,
+            has_media=cfg.has_media, procedural=cfg.procedural,
+            instrument=instrument,
+        )
+        r_ref[...] = radiance.x
+        g_ref[...] = radiance.y
+        b_ref[...] = radiance.z
+        if instrument:
+            occ_refs[0][...] = counts
+
+    return body
+
+
+def _whole(a) -> pl.BlockSpec:
+    """Every block sees the whole array (read by index)."""
+    return pl.BlockSpec(a.shape, lambda i, _n=a.ndim: (0,) * _n)
+
+
+def _launch(cfg: _KernelConfig, num_tiles: int, sv, seed, base, u_all,
+            extras=(), instrument: bool = False):
+    """One Triton launch over num_tiles tiles -> (r, g, b) planes of shape
+    (num_tiles * tile_rows, LANES) (+ the (num_tiles, _occ_width) i32
+    occupancy rows when instrumented)."""
+    tr = cfg.tile_rows
+    plane = jax.ShapeDtypeStruct((num_tiles * tr, LANES), jnp.float32)
+    plane_spec = pl.BlockSpec((tr, LANES), lambda i: (i, 0))
+    if cfg.inkernel_rng:
+        u_spec = _whole(u_all)  # placeholder, never read
+    else:
+        u_spec = pl.BlockSpec((u_all.shape[0], tr, LANES), lambda i: (0, i, 0))
+    out_specs = [plane_spec] * 3
+    out_shape = [plane] * 3
+    if instrument:
+        w = _occ_width(cfg.depth)
+        out_specs.append(pl.BlockSpec((1, w), lambda i: (i, 0)))
+        out_shape.append(jax.ShapeDtypeStruct((num_tiles, w), jnp.int32))
+    return pl.pallas_call(
+        _make_kernel(cfg, len(extras), instrument),
+        grid=(num_tiles,),
+        in_specs=[_whole(sv), _whole(seed), _whole(base), u_spec]
+        + [_whole(e) for e in extras],
+        out_specs=out_specs,
+        out_shape=out_shape,
+        interpret=cfg.interpret,
+        backend="triton",
+        compiler_params=plt.CompilerParams(
+            num_warps=num_warps_for(tr), num_stages=1
+        ),
+        name=f"path_{cfg.backend_name}",
+    )(sv, seed, base, u_all, *extras)
+
+
+def _kernel_planes(cfg: _KernelConfig, num_tiles: int, scene: Scene, seed,
+                   base, u_all):
+    backend = _cfg_backend(cfg)
+    sv = pad_pow2(backend.pack(scene, cfg.width, cfg.height, cfg.has_media))
+    extras = backend.extra_of(scene) if backend.extra_of is not None else ()
+    return tuple(_launch(cfg, num_tiles, sv, seed, base, u_all, extras))
+
+
+def _xla_planes(cfg: _KernelConfig, num_tiles: int, scene: Scene, seed, base,
+                u_all):
+    """The XLA integrator on exactly the kernel's rays and sample stream,
+    laid out as the kernel's (r, g, b) planes — the function whose VJP is
+    the kernel's backward rule (detached-sampling estimator)."""
+    from ..integrator.tracer import trace
+    from ..models.camera import gen_ray
+    from ..ops.vecmath import V2
+
+    tr, w, h = cfg.tile_rows, cfg.width, cfg.height
+    tiles = base[0, 0] + jnp.arange(num_tiles, dtype=jnp.int32)[:, None, None]
+    ray = _lane_rays(
+        tiles,
+        jnp.arange(tr, dtype=jnp.int32)[None, :, None],
+        jnp.arange(LANES, dtype=jnp.int32)[None, None, :],
+        tr, w, h, cfg.spp, cfg.tiling,
+    ).reshape(-1)
+    if cfg.inkernel_rng:
+        cam_u, bounce_u = rng.hash_uniforms_for(
+            seed[0, 0], ray, cfg.depth, U_PER_BOUNCE
+        )
+    else:
+        u = u_all.reshape(u_all.shape[0], -1)
+        cam_u = u[:2].T
+        bounce_u = u[2:].reshape(cfg.depth, U_PER_BOUNCE, -1).transpose(0, 2, 1)
+    pid = jnp.minimum(ray // cfg.spp, w * h - 1)
+    px = (pid % w).astype(jnp.float32)
+    py = (pid // w).astype(jnp.float32)
+    coords = V2(px / w, (h - 1.0 - py) / h)
+    ro, rd = gen_ray(scene.camera, coords, V2(cam_u[:, 0], cam_u[:, 1]),
+                     float(w), float(h))
+    rad = trace(scene, ro, rd, bounce_u, cfg.quirks, detach=True,
+                remat=BWD_REMAT)
+    return tuple(c.reshape(num_tiles * tr, LANES) for c in (rad.x, rad.y, rad.z))
+
+
+# The backward rule's XLA VJP stores each bounce's residuals (False) or
+# recomputes them (True); measured on the card, PERF.md.
+BWD_REMAT = False
+
+
 @lru_cache(maxsize=None)
-def _diff_render(cfg: _KernelConfig, num_tiles: int):
-    """custom-VJP render over the packed scene vector. Forward = the fused
-    megakernel; backward = the replayed-path VJP kernel. seed / base /
+def _diff_planes(cfg: _KernelConfig, num_tiles: int):
+    """custom-VJP tile render. Forward = the fused kernel; backward = the
+    VJP of _xla_planes on the same rays and uniforms. seed / base /
     uniforms get zero cotangents (randomness and tile indexing are not
-    differentiated — the detached-sampling estimator)."""
+    differentiated)."""
 
     @jax.custom_vjp
-    def render(sv, seed, base, u_all):
-        return _pallas_forward(cfg, num_tiles, sv, seed, base, u_all)
+    def planes(scene, seed, base, u_all):
+        return _kernel_planes(cfg, num_tiles, scene, seed, base, u_all)
 
-    def fwd(sv, seed, base, u_all):
-        return render(sv, seed, base, u_all), (sv, seed, base, u_all)
+    def fwd(scene, seed, base, u_all):
+        return planes(scene, seed, base, u_all), (scene, seed, base, u_all)
 
     def bwd(res, ct):
-        sv, seed, base, u_all = res
-        gsv = _pallas_backward(cfg, num_tiles, sv, seed, base, u_all, ct)
-        return gsv, None, None, jnp.zeros_like(u_all)
+        scene, seed, base, u_all = res
+        _, vjp = jax.vjp(
+            lambda s: _xla_planes(cfg, num_tiles, s, seed, base, u_all), scene
+        )
+        (g_scene,) = vjp(tuple(ct))
+        return g_scene, None, None, None
 
-    render.defvjp(fwd, bwd)
-    return render
-
-
-def debug_uniform_stream(
-    seed: int,
-    num_tiles: int,
-    n_uniforms: int,
-    tile_rows: int = 8,
-    interpret: bool = False,
-) -> jnp.ndarray:
-    """Expose the megakernel's in-kernel uniform stream for validation.
-
-    Runs the EXACT seeding and 24-bit-uniform construction the rendering
-    kernel uses (per-(frame seed, tile) Weyl-mixed pltpu.prng_seed, top-24
-    bits of pltpu.prng_random_bits scaled by 2^-24) and returns the first
-    `n_uniforms` draws of every lane: [num_tiles, n_uniforms, tile_rows,
-    LANES] float32. tests/test_rng.py and scripts/validate_rng.py run
-    uniformity (KS), resolution, and cross-tile independence checks on it —
-    so the headline bench's RNG mode has witnesses beyond the bench itself
-    (VERDICT round 1, weak #8).
-    """
-    shape = (tile_rows, LANES)
-    inv24 = float(1.0 / (1 << 24))
-
-    def body(seed_ref, out_ref):
-        tile_id = pl.program_id(0)
-        _seed_tile_rng(seed_ref[0, 0], tile_id)
-        for k in range(n_uniforms):
-            bits = pltpu.bitcast(pltpu.prng_random_bits(shape), jnp.uint32)
-            hi24 = pltpu.bitcast(bits >> jnp.uint32(8), jnp.int32)
-            out_ref[0, k] = hi24.astype(jnp.float32) * inv24
-
-    seed_arr = jnp.asarray([[seed]], jnp.int32)
-    out = pl.pallas_call(
-        body,
-        grid=(num_tiles,),
-        in_specs=[pl.BlockSpec((1, 1), lambda i: (0, 0), memory_space=pltpu.SMEM)],
-        out_specs=pl.BlockSpec(
-            (1, n_uniforms, tile_rows, LANES),
-            lambda i: (i, 0, 0, 0),
-            memory_space=pltpu.VMEM,
-        ),
-        out_shape=jax.ShapeDtypeStruct(
-            (num_tiles, n_uniforms, tile_rows, LANES), jnp.float32
-        ),
-        interpret=interpret,
-    )(seed_arr)
-    return out
+    planes.defvjp(fwd, bwd)
+    return planes
 
 
-def render_frame_pallas(
-    scene: Scene,
-    key,
-    width: int,
-    height: int,
-    spp: int = 1,
-    quirks: Quirks = VERBATIM,
-    tile_rows: int = 16,
-    uniforms: str = "inkernel",
-    interpret: bool = False,
-    media: bool | None = None,
-    tiling: str = "auto",
-) -> jnp.ndarray:
-    """Render one progressive frame with the fused Pallas megakernel.
-
-    Drop-in for integrator.tracer.render_frame on supported scenes
-    (analytical demo; SDF via ops/megakernel_sdf; anything registered via
-    register_backend): returns [H, W, 4] linear RGBA. Differentiable
-    w.r.t. scene parameters (custom-VJP backward kernel, detached-sampling
-    estimator; the backward kernel carries a raised per-kernel VMEM cap
-    and compiles at least to depth 16 on a v5e at tile_rows=8).
-    `uniforms`:
-    - "inkernel": TPU core PRNG, zero uniform bandwidth (fast path);
-    - "hbm": threefry uniforms identical to the XLA integrator's, for
-      allclose validation against it.
-
-    tiling="auto" (default) picks compact 2-D pixel-block tiles whenever
-    spp divides the lane width (see resolve_tiling) — image parity with
-    the XLA integrator is tiling-invariant under "hbm" uniforms (per-ray
-    streams); the in-kernel RNG stream assignment differs between tilings
-    (both are valid samplers).
-
-    media: compile the volumetric-media path (Absorb / Emissive / HG
-    Scatter, mirroring the XLA integrator) into the kernel. None (default)
-    auto-detects from the concrete material table; pass True explicitly if
-    you jit over scenes whose materials are traced AND declare media
-    (auto-detection sees only tracers there and compiles the cheaper
-    media-free kernel).
-    """
-    backend = _resolve_backend(scene)
-    if media is None:
-        media = _detect_media(scene)
-    return _render_frame_pallas(
-        scene, key, width, height,
-        spp=spp, quirks=quirks, tile_rows=tile_rows, uniforms=uniforms,
-        interpret=interpret, backend_name=backend.name, has_media=media,
-        tiling=resolve_tiling(tiling, spp),
+def _uniform_rows(key, n: int, depth: int, spp: int = 1):
+    """Threefry uniforms [2 + depth * U_PER_BOUNCE, n] in ray order (ray
+    r = pixel * spp + sample), rows in draw order [ox, oy, bounce0 u0..u7,
+    ...] — the XLA integrator's values exactly. At spp > 1
+    tracer.render_frame splits the key into spp subkeys and draws a
+    per-sample stream over the w*h pixels, so ray pid*spp + s takes
+    sample s's stream at pixel pid."""
+    npix = n // spp
+    draws = (
+        [draw_uniforms(key, npix, depth, jnp.float32)] if spp == 1
+        else [draw_uniforms(k, npix, depth, jnp.float32)
+              for k in jax.random.split(key, spp)]
     )
 
+    def interleave(per_sample):  # spp arrays of [npix] -> [npix*spp]
+        return jnp.stack(per_sample, axis=1).reshape(-1)
 
-def resolve_tiling(tiling: str, spp: int) -> str:
-    """"auto" -> compact 2-D pixel blocks whenever spp divides the 128
-    lanes (a pixel's spp samples sit in adjacent lanes; measured +49% on
-    the SDF kernel, +39% analytical, at 1080p tile_rows=32 — spatial
-    coherence tightens the per-tile march envelope), else flat ray
-    ranges."""
-    if tiling == "auto":
-        return "block" if LANES % spp == 0 else "flat"
-    if tiling not in ("flat", "block", "square"):
-        raise ValueError(
-            f"tiling must be 'auto'|'flat'|'block'|'square', got {tiling!r}"
-        )
-    return tiling
+    rows = [interleave([cam[:, j] for cam, _ in draws]) for j in (0, 1)]
+    for d in range(depth):
+        for j in range(U_PER_BOUNCE):
+            rows.append(interleave([bu[d, :, j] for _, bu in draws]))
+    return jnp.stack(rows)
+
+
+@lru_cache(maxsize=None)
+def _lane_ray_map(width: int, height: int, spp: int, tile_rows: int,
+                  tiling: str, num_tiles: int) -> _np.ndarray:
+    """Static map: kernel lane (tile, row, col), flattened -> global ray
+    index, -1 for padded lanes past the frame's last ray."""
+    ray = _lane_rays(
+        _np.arange(num_tiles)[:, None, None],
+        _np.arange(tile_rows)[None, :, None],
+        _np.arange(LANES)[None, None, :],
+        tile_rows, width, height, spp, tiling, xp=_np,
+    )
+    ray = ray.reshape(-1)
+    return _np.where(ray < width * height * spp, ray, -1)
+
+
+def _hbm_lanes(key, width, height, spp, depth, tile_rows, tiling,
+               total_tiles):
+    """Threefry rows in kernel-lane layout [U, total_tiles*tile_rows,
+    LANES]; padded lanes read 0.5 (their output is cropped)."""
+    rows = _uniform_rows(key, width * height * spp, depth, spp)
+    lanes = _lane_ray_map(width, height, spp, tile_rows, tiling, total_tiles)
+    u = jnp.where(lanes >= 0, rows[:, _np.maximum(lanes, 0)], 0.5)
+    return u.reshape(rows.shape[0], total_tiles * tile_rows, LANES)
 
 
 def _detect_media(scene: Scene) -> bool:
@@ -1995,64 +1406,6 @@ def _detect_media(scene: Scene) -> bool:
         return False
 
 
-@partial(
-    jax.jit,
-    static_argnames=(
-        "width",
-        "height",
-        "spp",
-        "quirks",
-        "tile_rows",
-        "uniforms",
-        "interpret",
-        "backend_name",
-        "has_media",
-        "tiling",
-    ),
-)
-def _render_frame_pallas(
-    scene: Scene,
-    key,
-    width: int,
-    height: int,
-    spp: int = 1,
-    quirks: Quirks = VERBATIM,
-    tile_rows: int = 16,
-    uniforms: str = "inkernel",
-    interpret: bool = False,
-    backend_name: str = "analytical",
-    has_media: bool = False,
-    tiling: str = "flat",
-) -> jnp.ndarray:
-    r, g, b = _render_tiles_pallas(
-        scene, key, width, height, spp, quirks, tile_rows, uniforms,
-        interpret, backend_name, has_media=has_media, tiling=tiling,
-    )
-    n = width * height * spp
-
-    geom = _tile_geometry(tiling, tile_rows, spp)
-    if geom is not None:
-        bw, bh, sub = geom
-        nbx = pl.cdiv(width, bw)
-        nby = pl.cdiv(height, bh)
-
-        def finish(c):
-            c = c.reshape(nby, nbx, tile_rows, sub, bw, spp).mean(axis=-1)
-            c = c.transpose(0, 2, 3, 1, 4).reshape(nby * bh, nbx * bw)
-            return c[:height, :width]
-    else:
-
-        def finish(c):
-            c = c.reshape(-1)[:n].reshape(height * width, spp).mean(axis=1)
-            return c.reshape(height, width)
-
-    img = jnp.stack(
-        [finish(r), finish(g), finish(b), jnp.ones((height, width), jnp.float32)],
-        axis=-1,
-    )
-    return img
-
-
 def _render_tiles_pallas(
     scene: Scene,
     key,
@@ -2067,72 +1420,58 @@ def _render_tiles_pallas(
     tile_base: int | jnp.ndarray = 0,
     num_tiles: int | None = None,
     has_media: bool = False,
-    tiling: str = "flat",
+    tiling: str = "block",
+    instrument: bool = False,
 ):
-    """Shared launch path: returns the raw (padded) radiance tile buffers.
+    """Shared launch path: returns the raw (r, g, b) tile planes.
 
     tile_base/num_tiles carve out a contiguous tile range — the shard_map
     path (parallel/mesh.render_frame_sharded_pallas) gives each device its
-    own range so per-tile RNG streams and pixel assignment stay globally
-    identical to the single-device launch.
-
-    tiling="block" maps each tile to a compact pixel rectangle instead of
-    a flat ray range; with spp>1 each pixel's spp samples sit in adjacent
-    lanes (spp-interleaved block layout, spp must divide LANES). hbm
-    uniform rows are permuted into kernel-lane order on the host so the
-    kernel still consumes the XLA integrator's exact per-sample threefry
-    streams."""
+    own range; the sample stream is keyed on the global ray index, so the
+    sharded render computes the single-device launch's samples."""
+    if uniforms not in ("inkernel", "hbm"):
+        raise ValueError(f"uniforms must be 'inkernel'|'hbm', got {uniforms!r}")
     backend = _BACKENDS[backend_name]
     depth = scene.recursion_depth
-    n = width * height * spp
-    tile = tile_rows * LANES
-    geom = _tile_geometry(tiling, tile_rows, spp)
-    if geom is not None:
-        total_tiles = pl.cdiv(width, geom[0]) * pl.cdiv(height, geom[1])
-    else:
-        total_tiles = pl.cdiv(n, tile)
+    total_tiles = num_tiles_for(width, height, spp, tile_rows, tiling)
     if num_tiles is None:
         num_tiles = total_tiles
-    n_pad = total_tiles * tile
 
     # Trailing meta element: whether the medium fields are packed — the
     # scalar views key their material-record layout off it.
     meta = backend.meta_of(scene) + (has_media,)
-    respect = backend_name == "analytical" and bool(meta[2])
-    sv = backend.pack(scene, width, height, has_media)
-
     if uniforms == "hbm":
-        if geom is not None:
-            u_flat = _uniform_rows(key, n, n, depth, spp)
-            u_all = u_flat[:, _block_lane_to_flat(width, height, tile_rows,
-                                                  geom[0], geom[2], spp)]
-        else:
-            u_all = _uniform_rows(key, n, n_pad, depth, spp)
+        u_all = _hbm_lanes(key, width, height, spp, depth, tile_rows, tiling,
+                           total_tiles)
         if not isinstance(tile_base, int) or tile_base != 0:
-            # carve this device's tile range out of the global rows.
-            # Pad first: when the device count doesn't divide total_tiles,
-            # a device's range can straddle the end of the global rows, and
-            # dynamic_slice would CLAMP the start — silently shifting the
-            # valid leading tiles onto the wrong uniform columns. With the
-            # pad, only fully-surplus devices (whose whole output is
-            # cropped) ever clamp.
+            # This device's tile range out of the global rows. Pad first:
+            # when the device count doesn't divide total_tiles, a range can
+            # straddle the end, and dynamic_slice would CLAMP the start —
+            # shifting valid tiles onto the wrong uniforms.
             u_all = jnp.pad(
-                u_all, ((0, 0), (0, num_tiles * tile)), constant_values=0.5
+                u_all, ((0, 0), (0, num_tiles * tile_rows), (0, 0)),
+                constant_values=0.5,
             )
+            zero = jnp.zeros((), jnp.int32)
             u_all = jax.lax.dynamic_slice(
                 u_all,
-                # Both indices pinned int32: under jax_enable_x64 a bare 0
-                # literal canonicalizes to int64 and dynamic_slice rejects
-                # mixed index dtypes.
-                (jnp.zeros((), jnp.int32), jnp.asarray(tile_base, jnp.int32) * tile),
-                (u_all.shape[0], num_tiles * tile),
+                (zero, jnp.asarray(tile_base, jnp.int32) * tile_rows, zero),
+                (u_all.shape[0], num_tiles * tile_rows, LANES),
             )
         seed = jnp.zeros((1, 1), jnp.int32)
     else:
-        seed = jax.random.randint(key, (1, 1), 0, jnp.iinfo(jnp.int32).max, jnp.int32)
-        u_all = jnp.zeros((1, tile), jnp.float32)  # placeholder, never read
+        seed = jax.random.randint(
+            key, (1, 1), 0, jnp.iinfo(jnp.int32).max, jnp.int32
+        )
+        u_all = jnp.zeros((1, tile_rows, LANES), jnp.float32)  # never read
 
-    base = jnp.asarray(tile_base, jnp.int32).reshape(1, 1)
+    # A runtime value even when 0: the compiled kernel reads it at run time
+    # anyway, and in interpret mode a constant base would let XLA fold the
+    # single-device kernel body differently from the sharded one (last-ulp
+    # image differences between the two launches).
+    base = jax.lax.optimization_barrier(
+        jnp.asarray(tile_base, jnp.int32).reshape(1, 1)
+    )
     cfg = _KernelConfig(
         backend_name=backend_name,
         meta=meta,
@@ -2142,50 +1481,210 @@ def _render_tiles_pallas(
         depth=depth,
         tile_rows=tile_rows,
         quirks=quirks,
-        inkernel_rng=(uniforms != "hbm"),
+        inkernel_rng=(uniforms == "inkernel"),
         interpret=interpret,
-        respect_max_dist=respect,
+        respect_max_dist=(backend_name == "analytical" and bool(meta[2])),
         has_media=has_media,
         procedural=scene.procedural_fn,
         tiling=tiling,
     )
-    if backend.extra_of is not None:
-        # Large-table backends are forward-only on the Pallas path (the
-        # replay-VJP backward kernel carries packed params as SMEM
-        # scalars; table cotangents would need a scatter path). Gradients
-        # for these scenes go through the XLA integrator.
-        extras = backend.extra_of(scene)
-        return _pallas_forward(
-            cfg, int(num_tiles), sv, seed, base, u_all, extras=extras
+    if instrument:
+        backend = _cfg_backend(cfg)
+        sv = pad_pow2(backend.pack(scene, width, height, has_media))
+        extras = backend.extra_of(scene) if backend.extra_of is not None else ()
+        return _launch(cfg, int(num_tiles), sv, seed, base, u_all, extras,
+                       instrument=True)
+    return _diff_planes(cfg, int(num_tiles))(scene, seed, base, u_all)
+
+
+def assemble_image(planes, width: int, height: int, spp: int, tile_rows: int,
+                   tiling: str):
+    """(r, g, b) tile planes -> [H, W, 4] image (spp mean, alpha 1). Planes
+    may carry surplus tiles past the frame (cropped)."""
+    bw = _tile_width(tiling, spp)
+    n = width * height * spp
+    if bw is not None:
+        nbx, nby = -(-width // bw), -(-height // tile_rows)
+
+        def finish(c):
+            c = c[: nby * nbx * tile_rows]
+            c = c.reshape(nby, nbx, tile_rows, bw, spp).mean(axis=-1)
+            c = c.transpose(0, 2, 1, 3).reshape(nby * tile_rows, nbx * bw)
+            return c[:height, :width]
+    else:
+
+        def finish(c):
+            c = c.reshape(-1)[:n].reshape(height * width, spp).mean(axis=1)
+            return c.reshape(height, width)
+
+    r, g, b = planes
+    return jnp.stack(
+        [finish(r), finish(g), finish(b), jnp.ones((height, width), jnp.float32)],
+        axis=-1,
+    )
+
+
+@partial(
+    jax.jit,
+    static_argnames=(
+        "width", "height", "spp", "quirks", "tile_rows", "uniforms",
+        "interpret", "backend_name", "has_media", "tiling",
+    ),
+)
+def _render_frame_pallas(
+    scene: Scene,
+    key,
+    width: int,
+    height: int,
+    spp: int,
+    quirks: Quirks,
+    tile_rows: int,
+    uniforms: str,
+    interpret: bool,
+    backend_name: str,
+    has_media: bool,
+    tiling: str,
+) -> jnp.ndarray:
+    planes = _render_tiles_pallas(
+        scene, key, width, height, spp, quirks, tile_rows, uniforms,
+        interpret, backend_name, has_media=has_media, tiling=tiling,
+    )
+    return assemble_image(planes, width, height, spp, tile_rows, tiling)
+
+
+def render_frame_pallas(
+    scene: Scene,
+    key,
+    width: int,
+    height: int,
+    spp: int = 1,
+    quirks: Quirks = VERBATIM,
+    tile_rows: int | None = None,
+    uniforms: str = "inkernel",
+    interpret: bool = False,
+    media: bool | None = None,
+    tiling: str = "auto",
+) -> jnp.ndarray:
+    """Render one progressive frame with the fused kernel.
+
+    Drop-in for integrator.tracer.render_frame on every scene a backend
+    claims: returns [H, W, 4] linear RGBA. Differentiable w.r.t. scene
+    parameters (custom VJP: the XLA integrator's VJP on the kernel's own
+    sample stream, detached-sampling estimator).
+
+    uniforms: "inkernel" (the ops/rng hash, no uniform tensor) or "hbm"
+    (threefry rows identical to the XLA integrator's, for validation).
+    interpret: run the Pallas interpreter — honoured on the CPU only
+    (device.pallas_interpret); on the GPU the compiled kernel always runs.
+    tile_rows: tile height (power of two <= 16; None = TILE_ROWS).
+    tiling: "auto" picks compact 2-D pixel-block tiles whenever spp
+    divides the lane width (resolve_tiling). Images are tiling-invariant:
+    both uniform modes are keyed on the global ray index.
+    media: compile the volumetric-media path into the kernel. None
+    auto-detects from the concrete material table; pass True explicitly
+    when jitting over scenes whose materials are traced AND declare media.
+    """
+    from .. import device
+
+    backend = _resolve_backend(scene)
+    if media is None:
+        media = _detect_media(scene)
+    tile_rows = TILE_ROWS if tile_rows is None else tile_rows
+    num_warps_for(tile_rows)  # validate before tracing
+    return _render_frame_pallas(
+        scene, key, width, height,
+        spp=spp, quirks=quirks, tile_rows=tile_rows, uniforms=uniforms,
+        interpret=device.pallas_interpret(interpret),
+        backend_name=backend.name, has_media=media,
+        tiling=resolve_tiling(tiling, spp),
+    )
+
+
+def measure_occupancy_pallas(
+    scene: Scene,
+    key,
+    width: int,
+    height: int,
+    spp: int = 1,
+    quirks: Quirks = VERBATIM,
+    tile_rows: int | None = None,
+    uniforms: str = "inkernel",
+    interpret: bool = False,
+    tiling: str = "auto",
+):
+    """Masked-lane occupancy measured INSIDE the fused kernel: the real
+    kernel with an extra i32 output of per-tile alive-lane counts entering
+    each bounce (the masked `break`s of tracer.rs:66-97). Returns a dict:
+      alive_fraction [depth] — mean alive fraction entering each bounce;
+      wasted_fraction        — 1 - mean(alive_fraction): the ceiling on
+                               what ray compaction could recover;
+      counts [num_tiles, depth] raw per-tile counts (spatial structure).
+    """
+    from .. import device
+
+    backend = _resolve_backend(scene)
+    tiling = resolve_tiling(tiling, spp)
+    tile_rows = TILE_ROWS if tile_rows is None else tile_rows
+    depth = scene.recursion_depth
+    num_tiles = num_tiles_for(width, height, spp, tile_rows, tiling)
+    out = _render_tiles_pallas(
+        scene, key, width, height, spp, quirks, tile_rows, uniforms,
+        device.pallas_interpret(interpret), backend.name,
+        has_media=_detect_media(scene), tiling=tiling, instrument=True,
+    )
+    counts = _np.asarray(out[3])[:, :depth]
+    tile = tile_rows * LANES
+    # Edge tiles carry border-clamped duplicate lanes (block) or padded
+    # rays (flat); their bounce-0 counts still equal the tile size, so the
+    # fractions model the lanes the hardware actually runs.
+    alive_fraction = counts.mean(axis=0) / float(tile)
+    return {
+        "alive_fraction": alive_fraction,
+        "wasted_fraction": 1.0 - float(alive_fraction.mean()),
+        "counts": counts,
+        "tile": tile,
+        "num_tiles": int(num_tiles),
+        "tiling": tiling,
+    }
+
+
+def debug_uniform_stream(seed: int, n_rays: int, n_uniforms: int,
+                         interpret: bool = False) -> jnp.ndarray:
+    """The kernel's in-kernel uniform stream, evaluated by a Triton kernel:
+    [n_uniforms, n_rays] f32, entry (j, r) = draw j of global ray r
+    (n_rays a multiple of TILE_ROWS * LANES). tests/test_rng.py checks it
+    bit for bit against the XLA evaluation (ops/rng.hash_uniforms) and
+    runs uniformity and independence checks on it."""
+    from .. import device
+
+    tile = TILE_ROWS * LANES
+    if n_rays % tile:
+        raise ValueError(f"n_rays must be a multiple of {tile}")
+    shape = (TILE_ROWS, LANES)
+
+    def body(seed_ref, out_ref):
+        ray = (
+            pl.program_id(0) * tile
+            + jax.lax.broadcasted_iota(jnp.int32, shape, 0) * LANES
+            + jax.lax.broadcasted_iota(jnp.int32, shape, 1)
         )
-    return _diff_render(cfg, int(num_tiles))(sv, seed, base, u_all)
+        key = rng.ray_key(seed_ref[0, 0], ray)
+        out_ref[...] = rng.uniform(key, pl.program_id(1))[None]
 
-
-@lru_cache(maxsize=None)
-def _block_lane_to_flat(width: int, height: int, tile_rows: int,
-                        bw: int = LANES, sub: int = 1,
-                        spp: int = 1) -> _np.ndarray:
-    """Static permutation: kernel-lane order (tile-major, row, col) ->
-    flat RAY index (pixel * spp + sample), for hbm uniform rows under 2-D
-    tiling (mirrors _raygen_block's lane->ray map). Edge blocks clamp to
-    the border like _raygen_block (those lanes' outputs are cropped, so
-    the uniform values they see are irrelevant — clamping just keeps
-    every index valid)."""
-    bh = tile_rows * sub
-    nbx = -(-width // bw)
-    nby = -(-height // bh)
-    t = _np.arange(nbx * nby)
-    by, bx = t // nbx, t % nbx
-    rows = _np.arange(tile_rows)
-    cols = _np.arange(LANES)
-    py = _np.minimum(
-        by[:, None, None] * bh + rows[None, :, None] * sub
-        + (cols // (bw * spp))[None, None, :],
-        height - 1,
-    )
-    px = _np.minimum(
-        bx[:, None, None] * bw + ((cols // spp) % bw)[None, None, :],
-        width - 1,
-    )
-    sample = (cols % spp)[None, None, :]
-    return ((py * width + px) * spp + sample).reshape(-1)
+    seed_arr = jnp.asarray([[seed]], jnp.int32)
+    out = pl.pallas_call(
+        body,
+        grid=(n_rays // tile, n_uniforms),
+        in_specs=[pl.BlockSpec((1, 1), lambda i, j: (0, 0))],
+        out_specs=pl.BlockSpec((1, TILE_ROWS, LANES), lambda i, j: (j, i, 0)),
+        out_shape=jax.ShapeDtypeStruct(
+            (n_uniforms, n_rays // LANES, LANES), jnp.float32
+        ),
+        interpret=device.pallas_interpret(interpret),
+        backend="triton",
+        compiler_params=plt.CompilerParams(
+            num_warps=num_warps_for(TILE_ROWS), num_stages=1
+        ),
+        name="uniform_stream",
+    )(seed_arr)
+    return out.reshape(n_uniforms, n_rays)

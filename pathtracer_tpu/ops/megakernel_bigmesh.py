@@ -1,27 +1,24 @@
-"""Pallas megakernel backend for the large-triangle-mesh scene family.
+"""Fused-kernel backend for the large-triangle-mesh scene family.
 
-Puts models/bigmesh.py on the production fast path: ray-triangle
-intersection as [CHUNK, 1] x [1, R] broadcast FMA streams over the
-precomputed coefficient tables (see models/bigmesh.py for the derivation
-and for why this beats an MXU matmul formulation here), 128 triangles at
-a time through a pure-SSA fori stream, each chunk guarded by an AABB
-slab cull under lax.cond — a flat one-level BVH traversed densely. The
-cond pays for itself even when nothing is culled: the scf.if boundary
-limits Mosaic's scheduling window, cutting register-spill traffic ~4x
-(measured 5.9 us vs 23.5 us per 1024-ray x 1152-triangle call with the
-cond removed).
+Puts models/bigmesh.py in the fused kernel. Each ray (one per thread) walks
+the Morton-ordered triangle list one triangle at a time: the triangle's 16
+precomputed Möller-Trumbore coefficients (models/bigmesh.coef_tables) are
+scalar loads shared by the whole block, the pair math is the shared
+mt_terms/mt_hit_t in the same operation order as the XLA twin, and the
+running nearest hit is a (t, index) pair in registers. The winner's normal
+and material id are then one indexed load per ray. Chunks of CHUNK
+triangles are guarded by an AABB slab test under lax.cond — a block-uniform
+branch that skips chunks no ray of the tile can hit (a flat one-level BVH).
 
-Unlike every other backend, the triangle tables do NOT ride in the packed
-SMEM scalar vector (9 floats x 1k+ triangles would blow the scalar
-budget): they enter through the KernelBackend.extra_of protocol as
-whole-array VMEM/SMEM refs. That also makes this backend FORWARD-ONLY on
-the Pallas path — gradients (vertex positions included) flow through the
-XLA twin (models/bigmesh.closest_hit is pure jnp of the vertex pytree).
+The triangle tables are too big for the packed scalar vector and enter
+through the KernelBackend.extra_of protocol as whole-array refs. Gradients
+(vertex positions included) come from the XLA twin (models/bigmesh.
+closest_hit, pure jnp of the vertex pytree) through the kernel's custom VJP.
 
-Reference anchor: the backend seam this scales is
-/root/reference/rust-pathtracer/src/scene.rs:5-27 (`closest_hit` /
-`any_hit` for arbitrary content is the trait's whole point); the
-reference itself ships only analytic spheres + a plane.
+Reference anchor: the backend seam this scales is rust-pathtracer
+src/scene.rs:5-27 (`closest_hit` / `any_hit` for arbitrary content is the
+trait's whole point); the reference itself ships only analytic spheres and
+a plane.
 """
 
 from __future__ import annotations
@@ -30,11 +27,10 @@ import jax
 import jax.numpy as jnp
 import numpy as _np
 
-from jax.experimental import pallas as pl
-
 from ..models.bigmesh import CHUNK, EPS, mt_hit_t, mt_terms
+from ..models.material import default_material
 from ..models.scene import Scene
-from ..ops.vecmath import V3, cross, mix, safe_normalize, splat3
+from ..ops.vecmath import V3, cross, dot, mix, safe_normalize, splat3, where3
 from .megakernel import (
     KernelBackend,
     _CommonScalars,
@@ -45,13 +41,11 @@ from .megakernel import (
     register_backend,
 )
 
-_DOT_PREC = jax.lax.Precision.HIGHEST  # bf16x6 ~ f32-faithful pair terms
-
 
 def pack_bigmesh_scene(scene: Scene, width: int, height: int,
                        with_medium: bool = True) -> jnp.ndarray:
     """Camera + sky + lights + materials only — triangle tables go through
-    extra_of, not the SMEM scalar vector."""
+    extra_of, not the packed scalar vector."""
     p = scene.params
     vals: list = pack_camera(scene, width, height)
     vals += [p.sky_horizon.x, p.sky_horizon.y, p.sky_horizon.z]
@@ -63,13 +57,11 @@ def pack_bigmesh_scene(scene: Scene, width: int, height: int,
 
 
 def _bigmesh_extras(scene: Scene):
-    """(coef [nchunk, CHUNK, 16] vmem — chunk-major so the kernel's fori
-    indexes the leading dim; attrT [8, Tpad] vmem; aabb [nchunk, 8] smem)."""
+    """(coef [Tpad, 16], attrT [8, Tpad], aabb [nchunk, 8]) — see
+    models/bigmesh.coef_tables."""
     from ..models.bigmesh import coef_tables
 
-    coef, attrT, aabb = coef_tables(scene.params)
-    tpad = coef.shape[0]
-    return (coef.reshape(tpad // CHUNK, CHUNK, 16), attrT, aabb)
+    return coef_tables(scene.params)
 
 
 class _BigMeshScalars(_CommonScalars):
@@ -87,9 +79,8 @@ class _BigMeshScalars(_CommonScalars):
         self.sky_scale = get()
         self._read_lights(n_lights)
         self._read_materials(n_mats, with_medium)
-        self.b_ref, self.attr_ref, self.aabb_ref = extras
+        self.coef_ref, self.attr_ref, self.aabb_ref = extras
         self.num_tris = num_tris
-        self.tpad = tpad
         self.nchunk = tpad // CHUNK
 
     def to_params(self):
@@ -104,25 +95,14 @@ def _bigmesh_view(ref, meta, extras):
     return _BigMeshScalars(ref, meta, extras)
 
 
-def _ray_rows_kernel(ro: V3, rd: V3):
-    """[1, R] ray-feature rows (d, m, o) from (tile_rows, LANES) component
-    planes — the lane-collapse reshape is the only relayout the whole
-    intersection needs (Mosaic supports it natively; transposed
-    orientations and an [R, 16] feature matrix were measured and
-    rejected)."""
-    shape = jnp.shape(rd.x)
-    R = shape[0] * shape[1]
-    row = lambda a: a.reshape(1, R)
+def _ray_features(ro: V3, rd: V3):
+    """Per-ray (d, m, o) feature planes, m = o x d the ray's moment."""
     mv = cross(ro, rd)
-    return (
-        [row(rd.x), row(rd.y), row(rd.z)],
-        [row(mv.x), row(mv.y), row(mv.z)],
-        [row(ro.x), row(ro.y), row(ro.z)],
-    )
+    return [rd.x, rd.y, rd.z], [mv.x, mv.y, mv.z], [ro.x, ro.y, ro.z]
 
 
 def _inv_d(d):
-    """Safe per-axis reciprocal direction rows for the slab cull."""
+    """Safe per-axis reciprocal directions for the slab test."""
     return [
         1.0 / jnp.where(jnp.abs(dk) > 1e-20, dk, jnp.float32(1e-20))
         for dk in d
@@ -130,11 +110,11 @@ def _inv_d(d):
 
 
 def _chunk_cull(sc, c, o, invd, t_far0):
-    """Scalar predicate: can chunk c produce a hit in (EPS, t_far0) for
-    ANY ray? Robust slab test against the chunk AABB in [1, R] row
-    layout; conservative because the AABB bounds the triangles exactly
-    (equal-t candidates never update the strict < fold, so strict
-    interval pruning preserves bit-exact results)."""
+    """Block-uniform predicate: can chunk c produce a hit in (EPS, t_far0)
+    for ANY ray of the tile? Robust slab test against the chunk AABB;
+    conservative because the AABB bounds the triangles exactly (equal-t
+    candidates never update the strict < fold, so strict interval pruning
+    keeps results exact)."""
     # traced zero from o (NOT t_far0: inf * 0 = NaN would veto every chunk)
     t_near = o[0] * 0.0 + jnp.float32(EPS)
     t_far = t_far0
@@ -149,125 +129,81 @@ def _chunk_cull(sc, c, o, invd, t_far0):
         t_near <= t_far, jnp.float32(1.0), jnp.float32(0.0))) > 0.0
 
 
-def _chunk_cols(b_ref, c):
-    """The 16 [CHUNK, 1] coefficient columns of chunk c."""
-    Bc = b_ref[c]  # [CHUNK, 16]
-    return [Bc[:, k:k + 1] for k in range(16)]
+def _tri_t(sc, tri, d, m, o):
+    """Hit distance of every ray against triangle `tri` (MISS if none)."""
+    cols = [sc.coef_ref[tri, k] for k in range(16)]
+    return mt_hit_t(*mt_terms(cols, d, m, o))
 
 
 def _closest_hit_bigmesh(sc: _BigMeshScalars, ro: V3, rd: V3):
-    """models/bigmesh.closest_hit, streamed chunk-by-chunk: per chunk the
-    shared mt_terms/mt_hit_t math runs as [CHUNK, 1] x [1, R] broadcast
-    FMAs (triangles on sublanes, rays on lanes) and a first-win argmin
-    folds through the fori carry; then one one-hot matmul gathers the
-    winner's geometric normal and material id on the MXU.
-
-    Structure notes (all measured on a v5e at 1080p): pure SSA loop
-    carries — a VMEM-scratch-ref variant ran 4x slower (every chunk's
-    elementwise chain round-tripped through the refs). The per-chunk AABB
-    cull's lax.cond earns its keep twice over: besides skipping chunks no
-    ray can hit, the scf.if boundary LIMITS THE SCHEDULING WINDOW, which
-    cuts the register-allocator spill traffic ~4x — the same kernel with
-    the cond removed measured 23.5 us/call vs 5.9 us with it, even when
-    every chunk passes."""
+    """models/bigmesh.closest_hit, one triangle at a time: a first-win
+    running minimum over the Morton-ordered list (the XLA twin's argmin),
+    then one indexed load of the winner's normal and material id."""
     shape = jnp.shape(rd.x)
-    R = shape[0] * shape[1]
-    d, m, o = _ray_rows_kernel(ro, rd)
+    d, m, o = _ray_features(ro, rd)
     invd = _inv_d(d)
     inf = jnp.float32(_np.inf)
-    li = jax.lax.broadcasted_iota(jnp.int32, (CHUNK, R), 0).astype(jnp.float32)
 
     def chunk_body(c, carry):
         def do(carry):
-            bt, bi, attrs = carry
-            tc = mt_hit_t(*mt_terms(_chunk_cols(sc.b_ref, c), d, m, o))
-            cb = jnp.min(tc, axis=0, keepdims=True)
-            lidx = jnp.min(
-                jnp.where(tc == cb, li, jnp.float32(CHUNK)),
-                axis=0, keepdims=True,
-            )
-            upd = cb < bt
-            # winner-attribute gather folded into the chunk: a [CHUNK, R]
-            # one-hot against this chunk's attrT slice, so skipped chunks
-            # pay nothing and no [Tpad, R] global one-hot ever exists
-            onehot = jnp.where((li == lidx) & upd,
-                               jnp.float32(1.0), jnp.float32(0.0))
-            attrs_c = jax.lax.dot_general(
-                sc.attr_ref[:, pl.ds(c * CHUNK, CHUNK)], onehot,
-                (((1,), (0,)), ((), ())), precision=_DOT_PREC,
-            )  # [8, R]
-            updf = jnp.where(upd, jnp.float32(1.0), jnp.float32(0.0))
-            return (
-                jnp.where(upd, cb, bt),
-                jnp.where(upd, c.astype(jnp.float32) * CHUNK + lidx, bi),
-                attrs * (jnp.float32(1.0) - updf) + attrs_c,
-            )
+            def tri_body(i, carry):
+                bt, bi = carry
+                tri = c * CHUNK + i
+                tc = _tri_t(sc, tri, d, m, o)
+                upd = tc < bt
+                return jnp.where(upd, tc, bt), jnp.where(upd, tri, bi)
+
+            return jax.lax.fori_loop(0, CHUNK, tri_body, carry)
 
         return jax.lax.cond(
             _chunk_cull(sc, c, o, invd, carry[0]), do, lambda cr: cr, carry
         )
 
-    # d[0] * 0.0 keeps the init values traced (a literal full/zeros array
-    # would be a captured constant, which pallas kernels reject)
-    zero_row = d[0] * 0.0
-    attrs0 = jnp.concatenate([zero_row] * 8, axis=0)  # [8, R]
-    bt, bi, attrs = jax.lax.fori_loop(
+    bt, bi = jax.lax.fori_loop(
         0, sc.nchunk, chunk_body,
-        (zero_row + inf, zero_row + jnp.float32(sc.tpad), attrs0),
+        (jnp.full(shape, inf, jnp.float32), jnp.zeros(shape, jnp.int32)),
     )
-
-    plane = lambda a: a.reshape(shape)
-    best_t_p = plane(bt)
-    hit_p = best_t_p < inf
+    hit = bt < inf
     normal = safe_normalize(V3(
-        plane(attrs[0:1, :]), plane(attrs[1:2, :]), plane(attrs[2:3, :])
+        sc.attr_ref[0, bi], sc.attr_ref[1, bi], sc.attr_ref[2, bi]
     ))
-    # Miss lanes gathered the all-zero padding row: unit up-normal keeps
-    # masked-lane shading NaN-free (matches models/bigmesh.closest_hit).
-    from ..ops.vecmath import where3 as _where3
-
-    normal = _where3(hit_p, normal, V3(
-        best_t_p * 0.0, best_t_p * 0.0 + 1.0, best_t_p * 0.0
-    ))
-    from ..ops.vecmath import dot as _vdot
-
-    normal = normal * jnp.where(_vdot(normal, rd) > 0.0, -1.0, 1.0)
-    mat_idx = plane(attrs[3:4, :]).astype(jnp.int32)
+    # Miss lanes read triangle 0's row: a unit up-normal keeps masked-lane
+    # shading NaN-free (matches models/bigmesh.closest_hit).
+    one = jnp.ones(shape, jnp.float32)
+    normal = where3(hit, normal, V3(0.0 * one, one, 0.0 * one))
+    normal = normal * jnp.where(dot(normal, rd) > 0.0, -1.0, 1.0)
+    mat_idx = sc.attr_ref[3, bi].astype(jnp.int32)
     mat = _pick_material(sc, mat_idx, shape)
-    from ..models.material import default_material
-
     defaults = default_material(shape, jnp.float32)
     mat = jax.tree_util.tree_map(
-        lambda a, b: jnp.where(hit_p, a, b), mat, defaults
+        lambda a, b: jnp.where(hit, a, b), mat, defaults
     )
-    return jnp.where(hit_p, best_t_p, inf), normal, mat
+    return jnp.where(hit, bt, inf), normal, mat
 
 
 def _any_hit_bigmesh(sc: _BigMeshScalars, ro: V3, rd: V3, max_dist):
-    """Occlusion bounded by max_dist: same chunk stream, no argmin or
-    winner gather (division-free bound test via mt_hit_t's MISS)."""
+    """Occlusion bounded by max_dist: the same triangle walk, no winner."""
     shape = jnp.shape(rd.x)
-    R = shape[0] * shape[1]
-    d, m, o = _ray_rows_kernel(ro, rd)
+    d, m, o = _ray_features(ro, rd)
     invd = _inv_d(d)
-    md = jnp.broadcast_to(max_dist, shape).reshape(1, R)
+    md = jnp.broadcast_to(max_dist, shape)
 
     def chunk_body(c, occ):
         def do(occ):
-            tc = mt_hit_t(*mt_terms(_chunk_cols(sc.b_ref, c), d, m, o))
-            any_c = jnp.max(
-                jnp.where(tc < md, jnp.float32(1.0), jnp.float32(0.0)),
-                axis=0, keepdims=True
-            )
-            return jnp.maximum(occ, any_c)
+            def tri_body(i, occ):
+                tc = _tri_t(sc, c * CHUNK + i, d, m, o)
+                return jnp.where(tc < md, jnp.float32(1.0), occ)
+
+            return jax.lax.fori_loop(0, CHUNK, tri_body, occ)
 
         # bound by max_dist, zeroed where the lane is already occluded
-        still = jnp.where(occ > 0.0, occ * 0.0, md)
+        still = jnp.where(occ > 0.0, 0.0, md)
         return jax.lax.cond(_chunk_cull(sc, c, o, invd, still), do,
                             lambda oc: oc, occ)
 
-    occ = jax.lax.fori_loop(0, sc.nchunk, chunk_body, d[0] * 0.0)
-    return occ.reshape(shape) > 0.0
+    occ = jax.lax.fori_loop(0, sc.nchunk, chunk_body,
+                            jnp.zeros(shape, jnp.float32))
+    return occ > 0.0
 
 
 def _background_bigmesh(sc: _BigMeshScalars, rd: V3) -> V3:
@@ -301,14 +237,9 @@ BIGMESH_BACKEND = KernelBackend(
     background=_background_bigmesh,
     matches=_bigmesh_matches,
     extra_of=_bigmesh_extras,
-    extra_spaces=("vmem", "vmem", "smem"),
     # Dead-lane probe rays (pointing up from far above the scene) miss
-    # every chunk AABB, so the any-lane chunk cull excludes dead lanes
-    # entirely — at depth 4, 46% of lane-bounces are dead.
+    # every chunk AABB, so the any-lane chunk cull excludes dead lanes.
     march_based=True,
-    # The one-hot gather + chunk streams exceed the 16 MiB default
-    # scoped-VMEM budget at production tile sizes.
-    fwd_vmem_limit_mb=64,
 )
 
 register_backend(BIGMESH_BACKEND)

@@ -1,12 +1,12 @@
-"""Pallas megakernel backend for the triangle-mesh scene family.
+"""Fused-kernel backend for the small triangle-mesh scene family.
 
-Puts models/mesh.py on the production fast path through the generic
-KernelBackend protocol (ops/megakernel.py) — the same protocol the
-analytical and SDF backends use and that tests/test_backend_plugin.py
-registers a toy backend through. Triangle topology and material ids are
-STATIC meta (the Möller-Trumbore chain unrolls at trace time — no gathers
-in VMEM); vertex positions are packed scalars, so vertex gradients flow
-through the backward kernel like sphere centers do.
+Puts models/mesh.py in the fused kernel through the generic KernelBackend
+protocol (ops/megakernel.py) — the same protocol the analytical and SDF
+backends use and that tests/test_backend_plugin.py registers a toy backend
+through. Triangle topology and material ids are STATIC meta (the
+Möller-Trumbore chain unrolls at trace time, no gathers); vertex positions
+are packed scalars. Vertex gradients come from the XLA twin through the
+kernel's custom VJP.
 
 Reference anchor: the reference has no mesh support at all (analytic
 spheres + plane only, renderer/src/analytical.rs:163-213); this exceeds

@@ -2,7 +2,7 @@
 
 Replaces the reference's private Tracer sampling helpers
 (rust-pathtracer/src/tracer.rs:222-333). Every function is elementwise over
-the ray batch (VPU-friendly), pure, and division-guarded so masked/dead
+the ray batch, pure, and division-guarded so masked/dead
 lanes never produce NaNs that would poison neighbours' gradients.
 
 Quirk ledger (kept verbatim; see SURVEY.md §7):

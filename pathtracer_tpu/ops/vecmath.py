@@ -1,17 +1,17 @@
 """L0 math layer: GLSL-style vector math over structure-of-arrays batches.
 
-TPU-native replacement for the reference's scalar vector types and free
+Batched replacement for the reference's scalar vector types and free
 functions (reference: rust-pathtracer/src/fx.rs, rust-pathtracer/src/math.rs,
 type aliases & constants at rust-pathtracer/src/lib.rs:5-10).
 
-Design: the reference stores one F3 per value; on TPU an array-of-structs
-layout ([N, 3]) wastes 125/128 vector lanes on the trailing dim. We instead
-use a structure-of-arrays `V3` NamedTuple of three [N]-shaped arrays so every
-component op maps densely onto the 8x128 VPU. `V3` is a pytree (it is a
+Design: the reference stores one F3 per value; a batched array-of-structs
+layout ([N, 3]) strides every component access by 3. We instead use a
+structure-of-arrays `V3` NamedTuple of three [N]-shaped arrays so every
+component op is a dense, contiguous elementwise op. `V3` is a pytree (it is a
 tuple), so it passes freely through jit/vmap/scan/shard_map and is
 differentiable per component.
 
-All functions are dtype-polymorphic: float32 for the TPU path, float64 for
+All functions are dtype-polymorphic: float32 for the accelerator path, float64 for
 CPU-oracle comparisons (the reference's `pub type F` compile-time precision
 switch, rust-pathtracer/src/lib.rs:6, becomes a runtime dtype choice).
 """

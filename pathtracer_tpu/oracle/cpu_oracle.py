@@ -5,19 +5,19 @@ role its missing test layer should have: a deliberately slow, scalar,
 sequential re-derivation of the exact math in rust-pathtracer/src/tracer.rs
 (+ scene.rs, analytical.rs, pinhole.rs, globals.rs, material.rs), with the
 reference's per-pixel control flow (real `break`s, branch-per-lobe) instead
-of the TPU path's masked lanes. The TPU integrator must match it allclose
+of the batched path's masked lanes. The JAX integrator must match it allclose
 — exactly (rtol ~1e-12) when the JAX path runs float64 on CPU, and
 statistically when running float32.
 
 RNG contract: ThreadRng (tracer.rs:44) is non-reproducible, so randomness is
 an *input*: the oracle consumes the same (cam_uniforms [N,2],
-bounce_uniforms [D,N,6]) arrays that `draw_uniforms` feeds the TPU path.
+bounce_uniforms [D,N,6]) arrays that `draw_uniforms` feeds the JAX path.
 Uniform slot layout per bounce: [light pick, light r1, light r2, bsdf r1,
 bsdf r2, reflect/refract coin].
 
 Guard contract: the reference lets degenerate denominators produce NaN and
 relies on `pdf > 0.0` being false for NaN to kill the path (tracer.rs:93).
-The TPU path must guard those divisions (masked lanes / gradient safety),
+The JAX path must guard those divisions (masked lanes / gradient safety),
 which can only differ from the reference in measure-zero configurations;
 the oracle applies the SAME guards so "allclose vs oracle" is well-defined.
 Each guard is commented at its site.

@@ -3,20 +3,20 @@
 The reference is a single-process shared-memory program (rayon threads over
 one Vec, rust-pathtracer/src/tracer.rs:29-32); its "distributed backend" row
 in SURVEY.md §5 prescribes `jax.distributed.initialize` + XLA collectives
-for the TPU build. This module is that entry path:
+for the accelerator build. This module is that entry path:
 
 - `initialize()` wires the process group from explicit args or environment
   (JAX's own bootstrap env — COORDINATOR_ADDRESS / NUM_PROCESSES /
   PROCESS_ID — or the PT_* equivalents), optionally selecting the CPU gloo
   collectives backend so the SAME code path is testable with two local
-  processes and no pod (tests/test_multihost.py).
+  processes and no GPUs (tests/test_multihost.py).
 - `global_mesh()` builds the ("tiles", "spp") mesh over ALL processes'
-  devices — each process only addresses its local chips, XLA lowers the
-  psum/all-reduce onto ICI/DCN.
+  devices — each process only addresses its local devices, XLA lowers the
+  psum/all-reduce onto NCCL (NVLink within a host, the network across).
 - `python -m pathtracer_tpu.parallel.launch` runs a small sharded
   inverse-rendering job end-to-end (render target, descend on light
   emission) and prints per-step losses on process 0 — the multi-host
-  smoke/acceptance run for a new slice.
+  smoke/acceptance run for a new cluster.
 
 Every process runs the SAME program (SPMD): jit with GSPMD shardings
 handles cross-process collectives; checkpointing stays process-0-only.
@@ -41,11 +41,17 @@ def initialize(
     """Initialize the JAX process group (idempotent).
 
     Args fall back to PT_COORDINATOR / PT_NUM_PROCESSES / PT_PROCESS_ID and
-    then to JAX's own auto-bootstrap (TPU pod metadata / cluster env). On a
-    real pod slice, plain `initialize()` with no args is enough on every
-    worker. For a local multi-process CPU run (CI / no pod), set
-    cpu_devices_per_process and cpu_collectives="gloo" BEFORE any JAX
-    backend is created.
+    then to JAX's own auto-bootstrap (cluster environment). For a local
+    multi-process CPU run (CI / no GPUs), set cpu_devices_per_process and
+    cpu_collectives="gloo" BEFORE any JAX backend is created.
+
+    On GPUs each process must own its own card(s): start one process per
+    GPU with CUDA_VISIBLE_DEVICES set to that GPU's index (or pass
+    jax.distributed.initialize's local_device_ids), and give every process
+    coordinator_address="host:port", num_processes and its process_id
+    explicitly — nothing tells JAX of the cluster otherwise. Two processes
+    that both open every card of a host each reserve most of every card's
+    memory and fail. Running on several hosts is not set up here.
     """
     if cpu_devices_per_process is not None:
         flags = os.environ.get("XLA_FLAGS", "")
@@ -76,7 +82,8 @@ def global_mesh(n_tiles: int | None = None, n_spp: int = 1):
 
     Defaults to all global devices on the tiles axis. The device order is
     jax.devices() (process-major), so contiguous tile ranges land on one
-    host first — collectives between tile neighbors ride ICI before DCN.
+    host first — collectives between tile neighbors stay on NVLink before
+    the network.
     """
     from .mesh import make_mesh
 
@@ -143,7 +150,7 @@ def run_demo_ckpt(
     jax.distributed the surviving peers then stall in their next
     collective (there is no in-job membership change), so recovery is a
     JOB-level restart from the shared checkpoint, which is exactly what a
-    TPU pod scheduler does on preemption."""
+    cluster scheduler does on preemption."""
     import jax.numpy as jnp
 
     import pathtracer_tpu as pt

@@ -2,16 +2,16 @@
 
 The reference's only parallelism is rayon work-stealing over scanlines on
 one CPU (rust-pathtracer/src/tracer.rs:24-32) with shared-memory `&mut`
-slices. The TPU-native equivalent (SURVEY.md §2 parallelism table): a 2-D
+slices. The accelerator equivalent (SURVEY.md §2 parallelism table): a 2-D
 `jax.sharding.Mesh` with axes
 
   - "tiles": data parallelism over pixels — each chip owns a contiguous
     block of the flat ray batch (the scanline-chunk analog, but static and
     compiler-visible);
   - "spp":   sample parallelism — the sample axis is sharded and the
-    radiance mean is an XLA all-reduce over ICI (the psum accumulation of
-    BASELINE's north star; the sharded-reduction-axis analog of sequence
-    parallelism, SURVEY.md §5).
+    radiance mean is an XLA all-reduce (NCCL over NVLink between GPUs;
+    the psum accumulation of BASELINE's north star; the
+    sharded-reduction-axis analog of sequence parallelism, SURVEY.md §5).
 
 Scene parameters (materials, lights, camera) are tiny and stay replicated;
 inverse-rendering gradients w.r.t. replicated params are all-reduced
@@ -50,9 +50,10 @@ from ..ops.vecmath import V2, V3
 def make_mesh(n_tiles: int, n_spp: int = 1, devices=None) -> Mesh:
     """Build a ("tiles", "spp") mesh from the first n_tiles*n_spp devices.
 
-    Both axes ride ICI on a pod slice; "tiles" is the outer (slower) axis so
-    the spp all-reduce — the only hot collective — stays between mesh
-    neighbors.
+    Devices are taken in order with no topology shape: the GPUs of one
+    host are joined all to all (NVLink), so the mesh follows the algorithm
+    alone. "tiles" is the outer axis, "spp" the inner one (the only hot
+    collective, the spp all-reduce, runs over it).
     """
     devices = list(jax.devices()) if devices is None else list(devices)
     need = n_tiles * n_spp
@@ -139,7 +140,7 @@ def render_frame_sharded(
         acc = _shard_v(mesh, acc, P("spp", "tiles"))
         radiance = V3(
             jnp.mean(acc.x, axis=0), jnp.mean(acc.y, axis=0), jnp.mean(acc.z, axis=0)
-        )  # mean over the sharded spp axis -> XLA all-reduce over ICI
+        )  # mean over the sharded spp axis -> XLA all-reduce
 
     radiance = _shard_v(mesh, radiance, P("tiles"))
     img = jnp.stack(
@@ -162,48 +163,52 @@ def render_frame_sharded_pallas(
     height: int,
     spp: int = 1,
     quirks: Quirks = VERBATIM,
-    tile_rows: int = 16,
+    tile_rows: int | None = None,
     uniforms: str = "inkernel",
     interpret: bool = False,
     media: bool | None = None,
     tiling: str = "auto",
 ) -> jnp.ndarray:
-    """Sharded megakernel render: the fused Pallas path under shard_map.
+    """Sharded fused-kernel render: the Triton kernel under shard_map.
 
     ALL devices of `mesh` (both axes flattened) form one tile axis; each
-    device launches the megakernel over its contiguous range of global
-    tiles. Because every tile's RNG stream depends only on (frame seed,
-    GLOBAL tile id) — in-kernel PRNG is seeded per global tile, and hbm
-    threefry rows are sliced by global tile — the sharded render computes
-    the SAME sample sequence and pixel assignment as the single-device
-    `render_frame_pallas` launch, whatever the device count (the property
-    the reference's per-thread ThreadRng scanline pool could never have,
-    rust-pathtracer/src/tracer.rs:29-44); images agree to f32 ulp level
-    (XLA may round the packed scene floats differently across the two
-    program shapes).
+    device launches the kernel over its contiguous range of global tiles.
+    Both uniform modes are keyed on the GLOBAL ray index (the in-kernel
+    hash directly; hbm threefry rows are sliced by global tile), so the
+    sharded render computes the SAME samples and pixel assignment as the
+    single-device `render_frame_pallas` launch, whatever the device count
+    (the property the reference's per-thread ThreadRng scanline pool could
+    never have, rust-pathtracer/src/tracer.rs:29-44).
 
-    Differentiable like the single-device path: shard_map's replicated
-    in_specs make jax.grad psum the per-device packed-parameter cotangents
-    from the backward kernel across the mesh automatically.
+    Differentiable like the single-device path: each device's backward
+    rule is the XLA VJP on its own tiles, and shard_map's replicated
+    in_specs psum the scene cotangents across the mesh.
 
     Note: uniforms="hbm" materializes the full-frame threefry rows on every
     device before slicing — intended for parity validation at small sizes;
-    the production mode is "inkernel" (zero uniform bandwidth).
+    the production mode is "inkernel".
 
     media=None (default) auto-detects volumetric media from the concrete
-    material table BEFORE entering the jitted body — same behavior as the
-    single-device render_frame_pallas. Pass an explicit bool when calling
-    from inside an outer jit (the leaves are tracers there and
-    auto-detection cannot see them).
+    material table BEFORE entering the jitted body. Pass an explicit bool
+    when calling from inside an outer jit.
     """
-    from ..ops.megakernel import _detect_media, resolve_tiling
+    from .. import device
+    from ..ops.megakernel import (
+        TILE_ROWS,
+        _detect_media,
+        num_warps_for,
+        resolve_tiling,
+    )
 
     if media is None:
         media = _detect_media(scene)
+    tile_rows = TILE_ROWS if tile_rows is None else tile_rows
+    num_warps_for(tile_rows)
+    plat = mesh.devices.reshape(-1)[0].platform
     return _render_frame_sharded_pallas_jit(
         scene, key, mesh=mesh, width=width, height=height, spp=spp,
         quirks=quirks, tile_rows=tile_rows, uniforms=uniforms,
-        interpret=interpret, media=media,
+        interpret=device.pallas_interpret(interpret, plat), media=media,
         tiling=resolve_tiling(tiling, spp),
     )
 
@@ -221,71 +226,47 @@ def _render_frame_sharded_pallas_jit(
     mesh: Mesh,
     width: int,
     height: int,
-    spp: int = 1,
-    quirks: Quirks = VERBATIM,
-    tile_rows: int = 16,
-    uniforms: str = "inkernel",
-    interpret: bool = False,
-    media: bool = False,
-    tiling: str = "flat",
+    spp: int,
+    quirks: Quirks,
+    tile_rows: int,
+    uniforms: str,
+    interpret: bool,
+    media: bool,
+    tiling: str,
 ) -> jnp.ndarray:
     from jax import shard_map
 
-    from ..ops.megakernel import LANES, _render_tiles_pallas, _resolve_backend
+    from ..ops.megakernel import (
+        _render_tiles_pallas,
+        _resolve_backend,
+        assemble_image,
+        num_tiles_for,
+    )
 
     backend_name = _resolve_backend(scene).name
     devs = mesh.devices.reshape(-1)
-    ndev = int(devs.size)
     flat_mesh = Mesh(devs, ("rays",))
-    n = width * height * spp
-    tile = tile_rows * LANES
-    from ..ops.megakernel import _tile_geometry
-
-    geom = _tile_geometry(tiling, tile_rows, spp)
-    if geom is not None:
-        nbx, nby = -(-width // geom[0]), -(-height // geom[1])
-        total_tiles = nbx * nby
-    else:
-        total_tiles = -(-n // tile)
-    local_tiles = -(-total_tiles // ndev)
+    total_tiles = num_tiles_for(width, height, spp, tile_rows, tiling)
+    local_tiles = -(-total_tiles // int(devs.size))
 
     def shard_fn(scene, key):
-        idx = jax.lax.axis_index("rays")
-        base = (idx * local_tiles).astype(jnp.int32)
+        base = (jax.lax.axis_index("rays") * local_tiles).astype(jnp.int32)
         return _render_tiles_pallas(
             scene, key, width, height, spp, quirks, tile_rows, uniforms,
             interpret, backend_name, tile_base=base, num_tiles=local_tiles,
             has_media=media, tiling=tiling,
         )
 
-    r, g, b = shard_map(
+    planes = shard_map(
         shard_fn,
         mesh=flat_mesh,
         in_specs=(P(), P()),
         out_specs=P("rays"),
         check_vma=False,
     )(scene, key)
-
-    if geom is not None:
-        bw, bh, sub = geom
-
-        # ndev * local_tiles may exceed total_tiles: surplus tiles rendered
-        # border-clamped duplicates; drop them before block reassembly.
-        def finish(c):
-            c = c[: total_tiles * tile_rows].reshape(
-                nby, nbx, tile_rows, sub, bw, spp
-            ).mean(axis=-1)
-            c = c.transpose(0, 2, 3, 1, 4).reshape(nby * bh, nbx * bw)
-            return c[:height, :width]
-    else:
-        def finish(c):
-            c = c.reshape(-1)[:n].reshape(height * width, spp).mean(axis=1)
-            return c.reshape(height, width)
-
-    return jnp.stack(
-        [finish(r), finish(g), finish(b), jnp.ones((height, width), jnp.float32)],
-        axis=-1,
-    )
+    # ndev * local_tiles may exceed total_tiles: surplus tiles rendered
+    # border-clamped duplicates or padding; assemble_image crops them.
+    return assemble_image(planes, width, height, spp, tile_rows, tiling)
 
 
 def make_train_step_sharded(
@@ -298,7 +279,7 @@ def make_train_step_sharded(
     lr: float = 2e-2,
     quirks: Quirks = VERBATIM,
     kernel: str = "xla",
-    tile_rows: int = 16,
+    tile_rows: int | None = None,
     uniforms: str = "inkernel",
     interpret: bool = False,
 ):
@@ -311,9 +292,9 @@ def make_train_step_sharded(
 
     kernel="xla" (default) renders through the GSPMD-sharded XLA integrator
     with per-bounce remat; kernel="pallas" renders through the sharded
-    megakernel (render_frame_sharded_pallas) whose backward pass is the
-    fused VJP kernel — the production fast path for inverse rendering at
-    scale. tile_rows/uniforms/interpret apply to the pallas kernel only.
+    fused kernel (render_frame_sharded_pallas), whose backward rule is the
+    XLA VJP on the kernel's own samples. tile_rows/uniforms/interpret
+    apply to the pallas kernel only.
 
     Returns (step_fn, init_state, names) where
     step_fn(train, opt_state, target, key) -> (train, opt_state, loss).

@@ -29,10 +29,10 @@ class RenderConfig:
     scene: str = "analytical"  # scene registry key
     quirks: str = "verbatim"  # "verbatim" | "fixed"
     # Execution
-    kernel: str = "xla"  # "xla" (lax.scan integrator) | "pallas" (megakernel)
-    tile_rows: int = 16  # megakernel tile height (rays per tile = 128*rows)
-    tiling: str = "auto"  # megakernel tile layout: auto | flat | block | square
-    rng: str = "inkernel"  # megakernel uniforms: "inkernel" | "hbm"
+    kernel: str = "auto"  # "auto" (device.use_kernel) | "xla" (lax.scan integrator) | "pallas" (fused kernel)
+    tile_rows: int = 4  # kernel tile height (rays per tile = 32*rows)
+    tiling: str = "auto"  # kernel tile layout: auto | flat | block
+    rng: str = "inkernel"  # kernel uniforms: "inkernel" (hash) | "hbm" (threefry)
     mesh_tiles: int = 1  # device-mesh tile axis (>1 = sharded render)
     mesh_spp: int = 1  # device-mesh sample axis (XLA kernel only)
     unroll: int = 1  # bounce-loop unroll factor for the XLA integrator

@@ -2,7 +2,7 @@
 
 The reference's "Write images to disk" is an unimplemented TODO
 (Readme.md:74); the windowed viewer (renderer/src/main.rs:113-131) is its
-only output path. Headless TPU rendering needs files instead.
+only output path. Headless accelerator rendering needs files instead.
 
 A dependency-free PNG encoder is provided (zlib + struct from the stdlib)
 so the framework works in hermetic environments; if the native runtime
@@ -78,7 +78,7 @@ def ansi_preview(pixels, max_cols: int = 100, gamma: bool = True) -> str:
     """Render a linear [H, W, 3|4] buffer as a 24-bit-color ANSI string.
 
     The live-progressive-view counterpart of the reference's windowed
-    viewer (renderer/src/main.rs:113-131) for headless TPU hosts: each
+    viewer (renderer/src/main.rs:113-131) for headless GPU hosts: each
     character cell shows two vertical pixels via the upper-half-block
     glyph (fg = top pixel, bg = bottom pixel). Box-filter downsampled to
     at most `max_cols` columns.

@@ -2,7 +2,7 @@
 
 The reference planned a scripting surface for scene content (rhai
 registration, /root/reference/rust-pathtracer/src/fx.rs:124-166 — dormant)
-so a non-code user could describe materials and geometry. The TPU-native
+so a non-code user could describe materials and geometry. The JAX-native
 equivalent of "scene as data" is literally the scene PYTREE: every
 differentiable quantity (sphere centers, materials, lights, camera, sky)
 is a leaf array, addressed by its tree path. This module serializes those

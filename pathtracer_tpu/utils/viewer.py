@@ -2,7 +2,7 @@
 
 The reference opens a tao window with a `pixels` GPU surface and repaints
 the accumulating buffer on every redraw (renderer/src/main.rs:34-194). A
-TPU render box is headless, so the real-time display path here is a tiny
+GPU render box is headless, so the real-time display path here is a tiny
 threaded HTTP server: `/` is a page with an auto-refreshing image, and
 `/stream` is a multipart/x-mixed-replace PNG stream — every call to
 `LiveViewer.update(pixels)` pushes the freshly accumulated frame to all

@@ -1,8 +1,8 @@
 """Disk-memoized oracle renders: the golden fixtures SURVEY.md §4 prescribed.
 
 The scalar float64 oracle is deliberately slow (~ms per pixel-bounce); the
-parity suite re-rendering the same frames on every run dominated wall time
-(VERDICT round 1, weak #11). `cached_render` memoizes `cpu_oracle.render`
+parity suite re-rendering the same frames on every run dominated wall time.
+`cached_render` memoizes `cpu_oracle.render`
 to `tests/golden/<sha>.npy`, keyed by a hash of
 
   - the oracle module source itself (any oracle change invalidates all

@@ -10,7 +10,6 @@ never ships triangles at all.
 import jax
 import jax.numpy as jnp
 import numpy as np
-import pytest
 
 import pathtracer_tpu as pt
 from pathtracer_tpu.models.bigmesh import (
@@ -166,19 +165,26 @@ def test_vertex_gradients_finite_difference():
 
 
 def test_bigmesh_backend_is_forward_only():
-    """The Pallas path rejects reverse-mode AD for extra-table backends
-    with a clear error (gradients go through the XLA twin)."""
+    """The kernel backend itself is forward-only; reverse-mode AD through
+    render_frame_pallas takes the custom VJP, i.e. the XLA twin's VJP on
+    the same uniforms, and so equals the XLA detached estimator."""
     from pathtracer_tpu.ops.megakernel import render_frame_pallas
 
     scene = make_scene(recursion_depth=1)
+    key = jax.random.PRNGKey(0)
 
-    def loss(em):
+    def loss(em, kernel):
         s = scene.replace(lights=scene.lights._replace(emission=em))
-        img = render_frame_pallas(
-            s, jax.random.PRNGKey(0), 32, 16, uniforms="hbm",
-            interpret=True, tile_rows=8
-        )
+        if kernel:
+            img = render_frame_pallas(
+                s, key, 32, 16, uniforms="hbm", interpret=True, tile_rows=8
+            )
+        else:
+            img = pt.render_frame(s, key, 32, 16, detach=True)
         return jnp.mean(img[..., :3])
 
-    with pytest.raises(Exception):
-        jax.grad(loss)(scene.lights.emission)
+    em = scene.lights.emission
+    g_k = jax.grad(lambda e: loss(e, True))(em)
+    g_x = jax.grad(lambda e: loss(e, False))(em)
+    np.testing.assert_allclose(np.asarray(g_k), np.asarray(g_x), rtol=1e-5)
+    assert np.abs(np.asarray(g_k)).max() > 1e-6

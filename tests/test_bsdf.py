@@ -164,7 +164,7 @@ def test_gtr1_log2_flag():
 def test_grazing_incidence_no_nan():
     """Regression: exactly-tangent hits (dot(n, v) == 0 after f32 rounding)
     drove 0/0 NaN through the lobe denominators 4*l.z*v.z / v.z (observed
-    ~1 per 10^7 paths on TPU). The physical limit is f = 0 (Smith G
+    ~1 per 10^7 paths in float32). The physical limit is f = 0 (Smith G
     vanishes at grazing)."""
     f32 = jnp.float32
     n = v3(0.5915424, 0.58934027, 0.5502324, dtype=f32)

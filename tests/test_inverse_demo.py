@@ -1,6 +1,6 @@
 """recover_demo entry point (integrator/inverse.py + app/invert.py):
 BASELINE config 4 — recover albedo/roughness/light emission from a target
-render — exercised tiny on CPU through the megakernel path with
+render — exercised tiny on CPU through the fused-kernel path with
 checkpoint/resume. Anchor: the dormant scriptable-materials intent this
 inverts (/root/reference/rust-pathtracer/src/material.rs:77).
 """
@@ -20,7 +20,7 @@ def test_recover_demo_pallas_with_checkpoint(tmp_path):
     report = recover_demo(
         key=jax.random.PRNGKey(1),
         width=32, height=16, steps=3, lr=5e-2,
-        kernel="pallas", tile_rows=8,
+        kernel="pallas", tile_rows=8, interpret=True,
         ckpt_dir=ckpt, ckpt_every=2,
         recursion_depth=2, verbose=False,
     )
@@ -38,7 +38,7 @@ def test_recover_demo_pallas_with_checkpoint(tmp_path):
     report2 = recover_demo(
         key=jax.random.PRNGKey(1),
         width=32, height=16, steps=4, lr=5e-2,
-        kernel="pallas", tile_rows=8,
+        kernel="pallas", tile_rows=8, interpret=True,
         ckpt_dir=ckpt, ckpt_every=2,
         recursion_depth=2, verbose=False,
     )

@@ -1,14 +1,15 @@
-"""Backward-pass validation for the Pallas megakernel (ops/megakernel.py).
+"""Backward-pass validation for the fused kernel (ops/megakernel.py).
 
-The megakernel's custom-VJP backward kernel replays the path with the SAME
-uniforms and runs the VJP of the pure path function in-kernel. With
-uniforms="hbm" its sampling decisions are bitwise-identical to the XLA
-integrator's, so its gradients must match the XLA detached-estimator
-gradients (which tests/test_grad.py validates against f64 common-random-
-number finite differences) to float32 accuracy. Reference anchor: the loop
-being differentiated is rust-pathtracer/src/tracer.rs:61-103.
+render_frame_pallas's custom VJP runs the XLA integrator's VJP on the
+kernel's own rays and uniforms. With uniforms="hbm" those are the XLA
+integrator's threefry uniforms, so the gradients must match the XLA
+detached-estimator gradients (which tests/test_grad.py validates against
+f64 common-random-number finite differences) to float32 accuracy.
+Reference anchor: the loop being differentiated is
+rust-pathtracer/src/tracer.rs:61-103.
 
-Runs in interpret mode on CPU (conftest pins the cpu platform).
+The forward kernel runs in interpret mode on CPU (conftest pins the cpu
+platform).
 """
 
 import jax
@@ -19,7 +20,7 @@ import pytest
 import pathtracer_tpu as pt
 from pathtracer_tpu.ops.megakernel import render_frame_pallas
 
-W, H = 32, 16  # interpret-mode backward is ~20x fwd cost; keep tiny
+W, H = 32, 16
 KEY = jax.random.PRNGKey(7)
 
 
@@ -61,8 +62,8 @@ def _losses(scene):
 
 
 def test_grad_matches_xla_detached_estimator(scene):
-    """d(loss)/d(light emission, material rgb): backward kernel vs the XLA
-    integrator's detached estimator on identical threefry uniforms."""
+    """d(loss)/d(light emission, material rgb): the kernel's backward rule
+    vs the XLA integrator's detached estimator on identical uniforms."""
     loss_pal, loss_xla = _losses(scene)
     em, rgb = scene.lights.emission, scene.params.materials.rgb
     g_pal = jax.grad(loss_pal, argnums=(0, 1))(em, rgb)
@@ -74,7 +75,7 @@ def test_grad_matches_xla_detached_estimator(scene):
 
 def test_grad_geometry_and_camera(scene):
     """Geometry (sphere center) and camera (origin) gradients flow through
-    pack_scene's VJP + the backward kernel and match the XLA path."""
+    the backward rule and match the XLA path."""
 
     def loss_pal(center_x, cam_z):
         s = scene.replace(
@@ -112,11 +113,7 @@ def test_grad_geometry_and_camera(scene):
 @pytest.mark.slow
 def test_grad_depth8_matches_xla(scene):
     """Deep-path gradients: depth 8 (2x the reference's default knob,
-    scene.rs:28-30) through the backward kernel. On the v5e the compiled
-    kernel needs the raised per-kernel VMEM cap (the reverse sweep's
-    residuals exceed the 16 MiB default scoped-VMEM budget at depth >= 7,
-    ops/megakernel._pallas_backward); this interpret-mode twin runs the
-    identical per-bounce op sequence via lax.scan."""
+    scene.rs:28-30) through the backward rule."""
     deep = pt.make_analytical_scene(dtype=jnp.float32, recursion_depth=8)
     loss_pal, loss_xla = _losses(deep)
     em, rgb = deep.lights.emission, deep.params.materials.rgb

@@ -1,7 +1,7 @@
 """Multi-host process-group test: 2 local processes, gloo CPU collectives.
 
 Proves the jax.distributed entry path (parallel/launch.py — SURVEY.md §5's
-distributed-backend row, round-1 VERDICT weak #4) actually runs the sharded
+distributed-backend row) actually runs the sharded
 train step ACROSS PROCESS BOUNDARIES: two spawned Python processes each own
 4 virtual CPU devices, form one 8-device global mesh, and descend the
 sharded inverse-rendering loss in lockstep. Both processes must agree on

@@ -3,11 +3,9 @@ ops/megakernel_sdf.measure_march_steps).
 
 The reference's per-pixel `break`s (rust-pathtracer/src/tracer.rs:66-97)
 become masked lanes in the fused kernel; these instruments measure what the
-masking costs ON THE FAST PATH (round-3 VERDICT weak #5: the XLA-path
-occupancy probe could not see the kernel where the economics bind). With
-hbm uniforms the kernel's sampling decisions are bitwise the XLA
-integrator's, so the in-kernel alive counts must reproduce
-integrator.tracer.measure_occupancy exactly.
+masking costs inside the kernel itself. With hbm uniforms the kernel's
+sampling decisions are the XLA integrator's, so the in-kernel alive counts
+must reproduce integrator.tracer.measure_occupancy exactly.
 """
 
 import jax

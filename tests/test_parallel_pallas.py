@@ -1,15 +1,14 @@
-"""Sharded megakernel validation (parallel/mesh.render_frame_sharded_pallas).
+"""Sharded fused-kernel validation (parallel/mesh.render_frame_sharded_pallas).
 
-The multi-chip path now carries the fused Pallas kernel (round-1 VERDICT
-weak #3: the sharded story used only the slow XLA trace). Because per-tile
-RNG/uniform assignment depends only on GLOBAL tile ids, the sharded launch
-gets the same per-tile sample stream and pixel assignment as the
-single-device megakernel launch — integer-exact by construction. The
-images are asserted equal to float32 ulp tolerance (XLA may round the
-packed camera-basis floats differently inside vs outside shard_map).
-Runs on the virtual 8-device CPU mesh in interpret mode with hbm
-(threefry) uniforms. Reference anchor: the rayon
-scanline pool this replaces, rust-pathtracer/src/tracer.rs:29-32.
+The multi-device path carries the fused Triton kernel under shard_map.
+Because the uniform stream is keyed on GLOBAL ray indices and tiles are
+carved by global tile id, the sharded launch gets the same samples and
+pixel assignment as the single-device launch — integer-exact by
+construction. The images are asserted equal to float32 ulp tolerance (XLA
+may round the packed camera-basis floats differently inside vs outside
+shard_map). Runs on the virtual 8-device CPU mesh in interpret mode.
+Reference anchor: the rayon scanline pool this replaces,
+rust-pathtracer/src/tracer.rs:29-32.
 """
 
 import jax
@@ -87,9 +86,9 @@ def test_sharded_block_tiling_straddling_device_range(scene, mesh):
 
 
 def test_sharded_pallas_grad_psums_across_devices(scene, mesh):
-    """jax.grad through shard_map + the backward kernel: per-device packed
-    cotangents must be psum'd into the same gradient the single-device
-    backward kernel produces."""
+    """jax.grad through shard_map + the kernel's backward rule: per-device
+    scene cotangents must be psum'd into the same gradient the
+    single-device backward rule produces."""
 
     def loss(em, render):
         s = scene.replace(lights=scene.lights._replace(emission=em))
@@ -121,7 +120,7 @@ def test_sharded_pallas_grad_psums_across_devices(scene, mesh):
 
 
 def test_sharded_train_step_pallas_kernel(scene, mesh):
-    """One full inverse-rendering step through the sharded megakernel
+    """One full inverse-rendering step through the sharded kernel
     (kernel="pallas"): finite loss, parameters move toward the target.
 
     The target is rendered with the SAME key/renderer the train step uses
@@ -149,3 +148,19 @@ def test_sharded_train_step_pallas_kernel(scene, mesh):
     before = float(jax.tree_util.tree_leaves(train)[0][0])
     after = float(jax.tree_util.tree_leaves(train1)[0][0])
     assert after > before
+
+
+def test_sharded_pallas_inkernel_hash_identical(scene, mesh):
+    """The in-kernel hash stream is keyed on the global ray index, so the
+    sharded launch reproduces the single-device image in that mode too."""
+    single = render_frame_pallas(
+        scene, KEY, W, H, spp=1, uniforms="inkernel", tile_rows=8,
+        interpret=True,
+    )
+    sharded = render_frame_sharded_pallas(
+        scene, KEY, mesh, W, H, spp=1, uniforms="inkernel", tile_rows=8,
+        interpret=True,
+    )
+    np.testing.assert_allclose(
+        np.asarray(single), np.asarray(sharded), atol=2e-6, rtol=1e-6
+    )

@@ -1,12 +1,12 @@
 """Physics invariants (SURVEY.md §4 item 3): checks against closed forms and
 estimator identities, NOT against the oracle.
 
-The parity suite proves the TPU path equals the scalar oracle; these tests
+The parity suite proves the JAX path equals the scalar oracle; these tests
 prove the *math itself* is physically coherent — a correlated bug in both
 (e.g. a factor of pi inherited from a shared misreading of tracer.rs) fails
 here even though parity passes.
 
-Covers (VERDICT round 1, weak #6/#7):
+Covers:
 - background-only render equals the analytic sky integral per pixel,
 - energy conservation bound in a unit-radiance furnace sky,
 - MIS vs BSDF-only vs NEE-only estimator agreement at high spp,

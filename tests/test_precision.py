@@ -1,9 +1,8 @@
 """f32 production path vs the f64 scalar oracle: quantified error bands.
 
 The oracle-parity suite runs f64-vs-f64 (exact); THIS file is the f32 story
-the round-1 suite cited but never wrote (VERDICT weak #5): render the
-float32 production paths (XLA integrator and the Pallas megakernel in
-interpreter mode) against the float64 oracle on identical threefry sample
+the suite needs beside it: render the float32 production paths (XLA
+integrator and the fused Pallas kernel in interpreter mode) against the float64 oracle on identical threefry sample
 decisions, and assert the error distribution stays inside measured bands.
 
 Measured on 24x16 (depth 4 and 8, analytical demo, 2026-08-19):
